@@ -1,0 +1,84 @@
+"""The CUDA trace kernels (csrc/trace.cu) against their plain PyTorch
+version on the same CUDA tensors, at small size. They need a CUDA device
+and nvcc, so they skip elsewhere; on the GPU machine run
+
+    python -m pytest tests/test_torch_kernels.py -q --noconftest
+
+(``--noconftest``: tests/conftest.py imports jax, which that machine lacks.)
+
+Both sides compute the same float32 operations in the same order without
+FMA contraction (the kernel is built with --fmad=false), so every output
+plane must be bitwise equal.
+"""
+
+import pytest
+import torch
+
+from tinyraytracing_tpu_torch.config import RenderConfig
+from tinyraytracing_tpu_torch.models.procedural import cornell_box, quad_grid
+from tinyraytracing_tpu_torch.ops import trace
+from tinyraytracing_tpu_torch.ops.bvh import attach_bvh
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _scene(name, device):
+    if name == "cornell":
+        scene, _ = cornell_box(32, 32)
+        scene = attach_bvh(scene, RenderConfig(leaf_size=8))
+    else:
+        scene, _ = quad_grid(6000)                       # leaf 8
+        if name == "grid32":   # the JAX CLI's leaf width for big scenes
+            scene = attach_bvh(scene, RenderConfig(leaf_size=32))
+    return scene.to(device)
+
+
+def _rays(n, device, shadow_scene=None):
+    g = torch.Generator().manual_seed(5)
+    org = torch.rand(n, 3, generator=g) * 500.0 + 30.0
+    d = torch.randn(n, 3, generator=g)
+    d = d / d.norm(dim=1, keepdim=True)
+    tb = torch.full((n,), 3.0e38)
+    tg = torch.full((n,), -2.0)
+    if shadow_scene is not None:           # toward light 0, bounded, parked
+        lp = shadow_scene.lt_v0[0, 0].cpu() * 0.4 + shadow_scene.lt_v1[0, 0].cpu() * 0.3 \
+            + shadow_scene.lt_v2[0, 0].cpu() * 0.3
+        to = lp - org
+        tb = to.norm(dim=1)
+        d = to / tb[:, None]
+        tb[::3] = 0.0
+        tg = torch.where(tb > 0, float(shadow_scene.light_mtl[0]), -2.0)
+    return torch.cat([org.T, d.T, tb[None], tg[None]]).float().contiguous().to(device)
+
+
+@pytest.mark.parametrize("shadow", [False, True])
+@pytest.mark.parametrize("name", ["cornell", "grid", "grid32"])
+def test_kernels_bitwise_equal_plain(name, shadow, device):
+    scene = _scene(name, device)
+    pk = scene.bvh.packed
+    rays = _rays(4096, device, scene if shadow else None)
+    cfg = RenderConfig()
+    for occl, attrs in ((False, True), (False, False), (True, False)):
+        k = trace.trace_kernel(pk, rays, cfg, attrs=attrs, occl=occl)
+        p = trace.trace_plain(pk, rays, cfg, attrs=attrs, occl=occl)
+        torch.cuda.synchronize()
+        assert torch.equal(k, p), (occl, attrs, (k != p).sum(dim=1).tolist())
+
+
+def test_wrapper_launches_kernel_on_cuda(device):
+    scene = _scene("cornell", device)
+    x = torch.zeros(256, device=device)
+    trace.reset_launch_counts()
+    trace.fused_trace_planes(scene, x + 278, x + 273, x - 500, x, x, x + 1,
+                             RenderConfig())
+    trace.fused_trace_planes(scene, x + 278, x + 273, x - 500, x, x, x + 1,
+                             RenderConfig(), t_bound=x + 900,
+                             target_mtl=x, query="occlusion")
+    assert trace.LAUNCHES == {"trace_closest": 1, "trace_occlusion": 1}

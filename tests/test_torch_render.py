@@ -1,0 +1,153 @@
+"""The port's queue-fed renderer against the JAX package's
+``render_fused_queue_jit`` on the CPU: same scene arrays, same seed (hence
+the same threefry sample streams), same lanes and config.
+
+As each package runs by default the renders cannot be bitwise equal: XLA
+contracts a*b+c into FMAs, the JAX CPU trace is Moller-Trumbore rather
+than the kernel's Woop walk, and XLA's transcendentals differ from
+PyTorch's in the last ulp. Each of the three alone flips a few
+grazing-angle shadow and bounce decisions. tests/torch_aligned_render.py
+renders the cases with all three aligned, in a process of its own (the
+FMA switch is an XLA start-up flag); the renders must then agree to the
+float rounding of the pixel sums: >= 99% of pixels within rtol 1e-4 /
+atol 1e-5, and image means within 1e-4 relative.
+"""
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from tinyraytracing_tpu_torch import cli
+from tinyraytracing_tpu_torch.config import RenderConfig
+from tinyraytracing_tpu_torch.integrator.fused_queue import render_fused_queue
+from tinyraytracing_tpu_torch.models.procedural import cornell_box
+from tinyraytracing_tpu_torch.ops.rng import master_key_data
+from tinyraytracing_tpu_torch.render import render_image
+from tests.torch_aligned_render import CASES, SIZE, SPP, scenes
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_PAIRS = {}
+
+
+def _pair(name):
+    if name not in _PAIRS:
+        _PAIRS[name] = scenes(name)
+    return _PAIRS[name]
+
+
+@pytest.fixture(scope="module")
+def aligned(tmp_path_factory):
+    """Both packages' images of every case, rendered with the arithmetic
+    aligned (tests/torch_aligned_render.py), one process per scene, the
+    processes side by side."""
+    tmp = tmp_path_factory.mktemp("aligned")
+    env = dict(os.environ, JAX_PLATFORMS="cpu", XLA_FLAGS=(
+        os.environ.get("XLA_FLAGS", "") + " --xla_cpu_max_isa=AVX"))
+    names = list(dict.fromkeys(n for n, _ in CASES))
+    procs = [subprocess.Popen([sys.executable, "-m",
+                               "tests.torch_aligned_render",
+                               str(tmp / f"{n}.npz"), n], cwd=ROOT, env=env)
+             for n in names]
+    try:
+        rcs = [p.wait(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    assert rcs == [0] * len(names), rcs
+    images = {}
+    for n in names:
+        with np.load(tmp / f"{n}.npz") as f:
+            images.update(f)
+    return images
+
+
+@pytest.mark.parametrize("name,cfg", CASES)
+def test_queue_render_matches_jax(name, cfg, aligned):
+    want = aligned[f"{name}-{cfg}-jax"]
+    got = aligned[f"{name}-{cfg}-port"]
+    assert np.isfinite(got).all() and (got >= 0).all()
+    assert float(aligned[f"{name}-{cfg}-rays"]) >= SIZE * SIZE * SPP
+    close = np.isclose(got, want, rtol=1e-4, atol=1e-5).all(axis=-1)
+    assert close.mean() >= 0.99, f"{(~close).sum()} of {close.size} pixels differ"
+    assert abs(got.mean() - want.mean()) <= 1e-4 * want.mean()
+
+
+def test_queue_render_is_deterministic_and_seeded():
+    _, _, ts, tcam = _pair("cornell")
+    cfg = RenderConfig(max_depth=4)
+    a = render_fused_queue(ts, tcam, master_key_data(1), cfg, 2, lanes=256)[0]
+    b = render_fused_queue(ts, tcam, master_key_data(1), cfg, 2, lanes=256)[0]
+    c = render_fused_queue(ts, tcam, master_key_data(7), cfg, 2, lanes=256)[0]
+    assert torch.equal(a, b) and not torch.equal(a, c)
+    # render_image: the same stream, as an (H, W, 3) host image
+    img = render_image(ts, tcam, cfg, spp=2, seed=1, renderer="queue",
+                       lanes=256)
+    np.testing.assert_array_equal(img, a.reshape(16, 16, 3).numpy())
+
+
+def test_max_iters_cap_drops_unfinished_paths():
+    _, _, ts, tcam = _pair("cornell")
+    cfg = RenderConfig(max_depth=6)
+    key = master_key_data(3)
+    full, rays_full = render_fused_queue(ts, tcam, key, cfg, 2, lanes=128,
+                                         max_iters=10_000)
+    capped, rays_capped = render_fused_queue(ts, tcam, key, cfg, 2,
+                                             lanes=128, max_iters=2)
+    assert torch.isfinite(capped).all() and (capped >= 0).all()
+    assert float(rays_capped) < float(rays_full)
+    assert float(capped.sum()) <= float(full.sum()) + 1e-4
+
+
+def test_cli_renders_png(tmp_path):
+    from PIL import Image
+
+    out = tmp_path / "grid.png"
+    rc = cli.main(["--scene", "grid:600", "--width", "16", "--height", "16",
+                   "--spp", "2", "--lanes", "512", "--out", str(out),
+                   "--no-compile-cache"])
+    assert rc == 0
+    with Image.open(out) as im:
+        assert im.size == (16, 16)
+        assert np.asarray(im).mean() > 0
+
+
+def test_unported_renderers_raise():
+    scene, cam = cornell_box(8, 8)
+    cam = dataclasses.replace(cam, width=8, height=8)
+    for kw in (dict(renderer="persistent"), dict(renderer="scan"),
+               dict(renderer="auto"),               # cornell: persistent
+               dict(renderer="queue", checkpoint_path="x.npz")):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            render_image(scene, cam, RenderConfig(), spp=1, **kw)
+
+
+@pytest.mark.parametrize("field,value", [
+    ("walk_order", "near"), ("intersector", "brute"),
+    ("intersector", "bvh_pallas"), ("accum_dtype", "bfloat16")])
+def test_unported_config_raises(field, value):
+    _, _, ts, tcam = _pair("cornell")
+    cfg = RenderConfig(**{field: value})
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        render_image(ts, tcam, cfg, spp=1, renderer="queue", lanes=128)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        render_fused_queue(ts, tcam, master_key_data(0), cfg, 1, lanes=128)
+
+
+def test_layout_knobs_do_not_change_the_render():
+    """The TPU layout and scan-renderer knobs are accepted and change
+    nothing (config.py); intersector="bvh" is the queue's own."""
+    _, _, ts, tcam = _pair("cornell")
+    key = master_key_data(2)
+    base = render_fused_queue(ts, tcam, key, RenderConfig(max_depth=3), 1,
+                              lanes=256)[0]
+    knobs = RenderConfig(max_depth=3, ray_tile=256, bvh_walk="binary",
+                         trace_super_rays=1024, tri_chunk=32, ray_chunk=64,
+                         bvh_early_out=False, detach_sampling=False,
+                         intersector="bvh")
+    assert torch.equal(render_fused_queue(ts, tcam, key, knobs, 1,
+                                          lanes=256)[0], base)

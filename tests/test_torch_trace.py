@@ -1,0 +1,90 @@
+"""The port's closest-hit trace (tinyraytracing_tpu_torch.ops.trace, plain
+PyTorch walk on the CPU) against the JAX package's Pallas kernel run in
+interpret mode (``force_kernel=True``), on the same scene and rays.
+
+Discrete outputs (hit/miss, material, emissive flag, triangle) must be
+equal; floats within the tolerances the JAX package holds its own
+backends to (tests/test_pallas_trace.py::_check_fused: t rtol 1e-5, shading
+normal and texcoord 1e-4). Interpret mode is slow, so calls stay at
+<= 512 rays. The JAX kernel has two walks ("wide", "binary"); the port's
+single per-ray walk must match both. "grid" is quad_grid(6000) at leaf 8,
+"grid32" the same scene at leaf 32, the width the JAX package's CLI picks
+for scenes of 10K triangles or more (32-slot leaf blocks, slots 8-31 live).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from tinyraytracing_tpu_torch.config import RenderConfig
+from tinyraytracing_tpu_torch.ops import trace as ttrace
+from tests.torch_port_util import (
+    RAYS, max_leaf_slots, random_rays, scene_pair, trace_both)
+
+
+def check_closest(j, t, attrs=True):
+    """_check_fused's tolerances, plus exact discrete outputs."""
+    hit = j[6] >= 0
+    np.testing.assert_array_equal(t[6] >= 0, hit)            # hit set
+    np.testing.assert_array_equal(t[6], j[6])                # material
+    np.testing.assert_array_equal(t[7], j[7])                # emissive
+    np.testing.assert_allclose(t[0], j[0], rtol=1e-5, atol=1e-6)
+    if attrs:
+        for k in range(1, 6):
+            np.testing.assert_allclose(t[k][hit], j[k][hit], rtol=1e-4,
+                                       atol=1e-4)
+    else:   # attrs=False: the attribute planes keep their initial values
+        for k, init in ((1, 0.0), (2, 0.0), (3, 1.0), (4, 0.0), (5, 0.0)):
+            assert (t[k] == init).all() and (j[k] == init).all()
+    if len(j) == 9:
+        np.testing.assert_array_equal(t[8], j[8])            # triangle
+    return hit
+
+
+@pytest.mark.parametrize("walk", ["wide", "binary"])
+@pytest.mark.parametrize("name", ["cornell", "grid", "grid32"])
+def test_closest_hit_matches_pallas_kernel(name, walk):
+    rng = np.random.default_rng(21)
+    org, d = random_rays(rng, 512, *RAYS[name])
+    j, t = trace_both(name, org, d, walk=walk, return_tri=True)
+    hit = check_closest(j, t)
+    assert 0.3 < hit.mean() < 1.0
+    assert (t[8][hit] >= 0).all() and (t[8][~hit] == -1).all()
+    if name == "grid32":        # 32-slot leaf blocks with slots 8-31 live
+        assert max_leaf_slots(scene_pair(name)[1]) == 32
+
+
+@pytest.mark.parametrize("name", ["cornell", "grid", "grid32"])
+def test_closest_hit_without_attrs_matches_pallas_kernel(name):
+    rng = np.random.default_rng(22)
+    org, d = random_rays(rng, 384, *RAYS[name])
+    tb = rng.uniform(100.0, 1200.0, 384).astype(np.float32)
+    j, t = trace_both(name, org, d, attrs=False, t_bound=tb)
+    hit = check_closest(j, t, attrs=False)
+    assert hit.any() and not hit.all()
+    # a bounded miss reports its bound
+    np.testing.assert_array_equal(t[0][~hit], tb[~hit])
+
+
+def test_root_leaf_scene_matches_pallas_kernel():
+    rng = np.random.default_rng(23)
+    js, ts = scene_pair("root_leaf")
+    assert ts.bvh.packed.n_wide == 1 and ts.bvh.n_nodes == 1
+    n = 256
+    org = rng.uniform(-1, 1, (n, 3)) * 150.0 + (278.0, 250.0, 280.0)
+    floor = rng.uniform(0, 1, (n, 3)) * (552.0, 0.0, 559.0)
+    light = rng.uniform(0, 1, (n, 3)) * (130.0, 0.0, 105.0) + (213, 548.8, 227)
+    to = np.where(np.arange(n)[:, None] % 2 == 0, floor, light) - org
+    d = to / np.linalg.norm(to, axis=1, keepdims=True)
+    j, t = trace_both("root_leaf", org.astype(np.float32),
+                      d.astype(np.float32), return_tri=True)
+    hit = check_closest(j, t)
+    assert hit.mean() > 0.9 and (t[7][hit] > 0.5).any()
+
+
+def test_walk_order_near_is_not_ported():
+    _, ts = scene_pair("cornell")
+    x = torch.zeros(4)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ttrace.fused_trace_planes(ts, x, x, x, x, x, x + 1.0,
+                                  RenderConfig(walk_order="near"))

@@ -1,0 +1,99 @@
+"""Render configuration: the same fields, defaults and ray-type constants as
+``tinyraytracing_tpu/config.py`` (whose docstrings give each field's
+rationale and the reference file:line it mirrors).
+
+Every field is accepted, so a config carries across unchanged. What the
+port does with those it does not act on:
+
+- no effect on a forward render, by design: the TPU packet-kernel layout
+  knobs ``ray_tile``, ``trace_super_rays`` and ``bvh_walk`` (the per-ray
+  walk's results do not depend on them), the scan renderer's chunking
+  ``tri_chunk``, ``ray_chunk`` and ``bvh_early_out``, and
+  ``detach_sampling``, which only steers gradients;
+- not ported, so a render raises ``NotImplementedError`` naming the
+  ROADMAP.md item (``check_ported``): ``intersector`` other than
+  "auto"/"bvh", ``accum_dtype`` other than "float32", and
+  ``walk_order="near"``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+# Ray types, mirroring the reference constants (RayTracingOnCPU/ray.h:5-8)
+DIFFUSE = 0
+SPECULAR = 1
+TRANSMISSION = 2
+INVALID = 3
+# freshly generated camera rays (the reference's depth-0 shade() call)
+CAMERA = 4
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderConfig:
+    """Static (hashable) render configuration."""
+
+    # sampling
+    spp: int = 256
+    max_depth: int = 16
+    p_rr: float = 0.8
+    # intersection
+    t_min: float = 5e-4
+    n_dot_d_min: float = 1e-5
+    intersector: str = "auto"
+    tri_chunk: int = 256
+    tie_eps: float = 4e-6         # relative t band of the emissive tie-break
+    ray_chunk: int = 65536
+    bvh_early_out: bool = True
+    # BVH build
+    leaf_size: int = 8
+    aabb_pad: float = 1e-3
+    # estimator fidelity switches
+    light_sampler: str = "ref"     # ref | uniform
+    specular_weight: str = "ref"   # ref | ks
+    shadow_test: str = "mtl"       # mtl | tmin
+    # queue renderer
+    queue_refill: str = "lane"     # lane | row
+    queue_resort_every: int = -1   # 0 never, -1 auto (never in the port)
+    queue_resort_key: str = "path"  # path | path_octant | morton
+    morton_cells: int = 32
+    # TPU packet-kernel knobs (no effect on the per-ray walk)
+    ray_tile: int = 0
+    bvh_walk: str = "auto"         # auto | wide | binary
+    shadow_compact: str = "auto"   # auto (off in the port) | on | off
+    walk_order: str = "preorder"   # preorder | near (not ported)
+    trace_super_rays: int = 131072
+    # differentiation (not ported yet)
+    detach_sampling: bool = True
+    accum_dtype: str = "float32"
+
+    def replace(self, **kw) -> "RenderConfig":
+        return dataclasses.replace(self, **kw)
+
+
+DEFAULT_CONFIG = RenderConfig()
+
+# field -> (values the port serves, what the other values need)
+_UNPORTED = {
+    "intersector": (("auto", "bvh"),
+                    "the oracle intersectors and their kernels (ROADMAP.md, "
+                    "modules to port, item 6; TPU kernels to port, items 4-5)"),
+    "accum_dtype": (("float32",),
+                    "reduced-precision accumulation (ROADMAP.md, modules to "
+                    "port, item 5: diff/)"),
+    "walk_order": (("preorder",),
+                   "the experimental near-first wide walk (ROADMAP.md, TPU "
+                   "kernels to port, item 3)"),
+}
+
+
+def check_ported(config: RenderConfig, fields=tuple(_UNPORTED)) -> None:
+    """Raise NotImplementedError if ``config`` asks, in one of ``fields``,
+    for something the port does not have yet, instead of rendering
+    without it."""
+    for field in fields:
+        ported, what = _UNPORTED[field]
+        value = getattr(config, field)
+        if value not in ported:
+            raise NotImplementedError(
+                f"{field}={value!r}: {what} is not ported yet")

@@ -1,0 +1,223 @@
+// Closest-hit and occlusion BVH traces for Hopper (sm_90a), one thread per
+// ray, with a plain C interface loaded through ctypes
+// (tinyraytracing_tpu_torch/ops/kernels.py builds this file with nvcc).
+//
+// Replaces the Pallas kernels reached from
+// tinyraytracing_tpu/ops/pallas_trace.py::fused_trace_planes:
+//   query "closest"   : _kernel_wide_smem / _kernel_wide_hbm walking
+//                       _walk_wide(_pf), and the binary _kernel_smem /
+//                       _kernel_smem_all / _kernel_hbm walking _walk; slot
+//                       update _leaf_slots.run_slots.
+//   query "occlusion" : the same kernels with occl=True; slot update
+//                       _leaf_slots.run_slots_occl, carry _init_carry(occl).
+// The TPU kernels walk one 8-wide tree per PACKET of rays with a scalar
+// stack, because the TPU's scalar unit drives the walk; their SMEM/HBM
+// variants and DMA prefetch are memory placements that are bitwise equal to
+// each other, and the wide walk is bitwise the binary walk. A per-lane
+// result does not depend on which packet the lane travels in
+// (pallas_trace.py:1212-1217), so here every thread walks the wide tree for
+// its own ray, with its own stack, testing children against its own best t
+// and pushing hits in reverse child order so pops follow the binary
+// preorder — the packet walk's results, lane for lane.
+//
+// The slot tests copy the JAX arithmetic operation for operation; this file
+// must be compiled with --fmad=false, since FMA contraction moves t in the
+// last ulp and flips decisions inside the tie_eps band and the kill.
+//
+// What bounds it on an H100: neither FLOPs nor bandwidth. Each step of the
+// walk is a dependent global load (a 512-byte wide-node row, or 16-32
+// strided per-slot floats of a leaf block) followed by ~60 float ops, and
+// rays of one warp take different paths (divergence). The PS and WN arrays
+// are read in their JAX (TPU-shaped) layouts: a slot's attributes sit 32
+// floats apart, so one slot test touches 16 different 128-byte lines.
+// This design does what is cheap: reads through the read-only cache
+// (__ldg), loads a slot's shading attributes only when the slot replaces
+// the best hit, and keeps the stack in thread-local memory (L1-resident).
+// A Hopper-shaped layout (slot-major leaf records, 16-byte vector loads)
+// and warp-coherent ray ordering are later work.
+
+#include <cuda_runtime.h>
+
+#define TRT_MAX_STACK 192
+#define TRT_SLOT 32
+
+struct TraceParams {
+  const float* rays;  // (8, R): ox oy oz dx dy dz t_bound target_mtl
+  const float* wn;    // (n_wide, 128) wide node rows
+  const float* ps;    // (8, ps_cols) packed leaf payload
+  long long ps_cols;
+  float* out;         // (9, R) closest / (2, R) occlusion
+  int R;
+  float t_min, graze, eps1;  // eps1 = float(1 + tie_eps)
+};
+
+template <bool OCCL, bool ATTRS>
+__global__ void __launch_bounds__(128) trace_kernel(TraceParams p) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= p.R) return;
+  const long long R = p.R;   // plane k of ray i at k*R + i
+  const float INF = 3.0e38f;
+
+  const float ox = p.rays[i], oy = p.rays[R + i], oz = p.rays[2 * R + i];
+  const float dx = p.rays[3 * R + i], dy = p.rays[4 * R + i],
+              dz = p.rays[5 * R + i];
+  const float tb = p.rays[6 * R + i], tg = p.rays[7 * R + i];
+
+  // _ray_consts: 1e18 axis-parallel sentinel, hoisted o*inv
+  const bool sx = fabsf(dx) < 1e-18f, sy = fabsf(dy) < 1e-18f,
+             sz = fabsf(dz) < 1e-18f;
+  const float invx = (sx ? 1e18f : 1.0f) / (sx ? 1.0f : dx);
+  const float invy = (sy ? 1e18f : 1.0f) / (sy ? 1.0f : dy);
+  const float invz = (sz ? 1e18f : 1.0f) / (sz ? 1.0f : dz);
+  const float oix = ox * invx, oiy = oy * invy, oiz = oz * invz;
+  const bool tga = tg > -1.5f;
+
+  // _init_carry
+  float bt = tb, bem = 0.f;
+  float bs = 0.f;                                        // occlusion
+  float bpnx = 0.f, bpny = 0.f, bpnz = 1.f, btcu = 0.f, btcv = 0.f,
+        bmtl = -1.f, bslot = -1.f;                       // closest hit
+
+  const float* __restrict__ ps = p.ps;
+  const long long cols = p.ps_cols;
+
+  int stack[TRT_MAX_STACK];
+  int sp = 1;
+  stack[0] = 0;  // root wide node
+  while (sp > 0) {
+    const int m = stack[--sp];
+    if (m >= 0) {
+      // interior: slab-test the 8 children against this ray's current bt
+      const float* __restrict__ row = p.wn + (long long)m * 128;
+      const float bte = bt * p.eps1;
+      for (int c = 7; c >= 0; --c) {                     // reverse preorder
+        const float* ch = row + c * 8;
+        const float meta = __ldg(ch + 6);
+        if (meta == -1.0f) continue;                     // empty slot
+        const float t_ax = __ldg(ch + 0) * invx - oix;
+        const float t_bx = __ldg(ch + 3) * invx - oix;
+        const float t_ay = __ldg(ch + 1) * invy - oiy;
+        const float t_by = __ldg(ch + 4) * invy - oiy;
+        const float t_az = __ldg(ch + 2) * invz - oiz;
+        const float t_bz = __ldg(ch + 5) * invz - oiz;
+        const float t0 = fmaxf(fmaxf(fminf(t_ax, t_bx), fminf(t_ay, t_by)),
+                               fminf(t_az, t_bz));
+        const float t1 = fminf(fminf(fmaxf(t_ax, t_bx), fmaxf(t_ay, t_by)),
+                               fmaxf(t_az, t_bz));
+        const float dist = t0 > 0.f ? t0 : t1;
+        if ((t1 >= t0) && (dist > 0.f) && (fmaxf(t0, 0.f) <= bte))
+          stack[sp++] = (int)meta;
+      }
+      continue;
+    }
+    // leaf: meta = -(leaf_id*64 + count + 2)
+    const int dec = -m - 2;
+    const int leaf = dec >> 6;
+    const int cnt = dec & 63;
+    const float* __restrict__ blk = ps + (long long)leaf * 128;
+#define G(a) __ldg(blk + ((a) / 4) * cols + ((a) % 4) * TRT_SLOT + s)
+#define H(a) __ldg(blk + (4 + (a) / 4) * cols + ((a) % 4) * TRT_SLOT + s)
+    for (int s = 0; s < cnt; ++s) {
+      const float ax = G(0), ay = G(1), az = G(2), bx = G(3);
+      const float by = G(4), bz = G(5), cx = G(6), cy = G(7);
+      const float cz = G(8), ou = G(9), ov = G(10), ow = G(11);
+      const float gx = G(12), gy = G(13), gz = G(14), em = G(15);
+
+      const float ldw = dx * cx + dy * cy + dz * cz;
+      const float low = ox * cx + oy * cy + oz * cz + ow;
+      const float inv = (ldw == 0.f ? 0.f : 1.f) / (ldw == 0.f ? 1.f : ldw);
+      const float t = -low * inv;
+      const float u = (ox * ax + oy * ay + oz * az + ou) +
+                      t * (dx * ax + dy * ay + dz * az);
+      const float v = (ox * bx + oy * by + oz * bz + ov) +
+                      t * (dx * bx + dy * by + dz * bz);
+      const float ndd = dx * gx + dy * gy + dz * gz;
+      const bool ok = (fabsf(ndd) >= p.graze) && (ldw != 0.f) &&
+                      (t >= p.t_min) && (u >= 0.f) && (v >= 0.f) &&
+                      (u + v <= 1.f);
+      const float tm = ok ? t : INF;
+      const float tme = tm * p.eps1;
+      const bool in_band = (tm <= bt * p.eps1) && (bt <= tme) && (tm < INF);
+      const bool repl =
+          (!in_band && (tm < bt)) || (in_band && (em > 0.5f) && (bem < 0.5f));
+      const bool may_kill = tga && (tme < bt);
+      if (!repl && !may_kill) continue;                  // no carry change
+      const float mt_slot = H(15);
+      const bool wrong = fabsf(mt_slot - tg) > 0.5f;
+      const bool kill = may_kill && wrong;
+      // the jnp.where chains: a kill takes precedence over repl, except for
+      // the shading attributes, which follow repl alone (a kill implies
+      // repl: tm*(1+eps) < bt rules out the band, and tm < bt)
+      if (kill) {
+        bt = -1.f;
+        bem = 0.f;
+        if (OCCL) {
+          bs = 0.f;
+        } else {
+          bmtl = -3.f;
+          if (ATTRS) bslot = -1.f;
+        }
+      } else {
+        bt = tm;
+        bem = em;
+        if (OCCL) {
+          bs = wrong ? 0.f : 1.f;
+        } else {
+          bmtl = mt_slot;
+          if (ATTRS) bslot = (float)(leaf * TRT_SLOT) + (float)s;
+        }
+      }
+      if (ATTRS && repl) {
+        const float w = 1.0f - u - v;
+        bpnx = H(0) * w + H(3) * u + H(6) * v;
+        bpny = H(1) * w + H(4) * u + H(7) * v;
+        bpnz = H(2) * w + H(5) * u + H(8) * v;
+        btcu = H(9) * w + H(11) * u + H(13) * v;
+        btcv = H(10) * w + H(12) * u + H(14) * v;
+      }
+      // after a kill (bt = -1) no slot with t >= t_min > 0 can replace or
+      // kill again and no box passes the slab test: the walk is over
+      if (kill && p.t_min > 0.f) {
+        sp = 0;
+        break;
+      }
+    }
+#undef G
+#undef H
+  }
+
+  float* out = p.out;
+  out[i] = bt;
+  if (OCCL) {
+    out[R + i] = bs;
+  } else {
+    out[R + i] = bpnx;
+    out[2 * R + i] = bpny;
+    out[3 * R + i] = bpnz;
+    out[4 * R + i] = btcu;
+    out[5 * R + i] = btcv;
+    out[6 * R + i] = bmtl;
+    out[7 * R + i] = bem;
+    out[8 * R + i] = bslot;
+  }
+}
+
+extern "C" int trt_max_stack() { return TRT_MAX_STACK; }
+
+// query: 0 closest hit with attributes, 1 closest hit without, 2 occlusion.
+// Returns cudaGetLastError() after the launch (0 = launched).
+extern "C" int trt_trace(const float* rays, const float* wn, const float* ps,
+                         long long ps_cols, float* out, int R, int query,
+                         float t_min, float graze, float eps1, void* stream) {
+  if (R <= 0) return 0;
+  TraceParams p{rays, wn, ps, ps_cols, out, R, t_min, graze, eps1};
+  const dim3 block(128), grid((unsigned)((R + 127) / 128));
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (query) {
+    case 0: trace_kernel<false, true><<<grid, block, 0, st>>>(p); break;
+    case 1: trace_kernel<false, false><<<grid, block, 0, st>>>(p); break;
+    case 2: trace_kernel<true, false><<<grid, block, 0, st>>>(p); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,62 @@
+"""Pinhole camera (reference RayTracingOnCPU/camera.cpp:3-28), the
+counterpart of ``tinyraytracing_tpu/models/camera.py``.
+
+    h          = tan(radians(fovy) / 2)
+    viewport   = (2h * aspect, 2h) at focal distance 1
+    w          = normalize(eye - lookat)
+    u          = normalize(cross(up, w));  v = cross(w, u)
+    horizontal = viewport_w * u;  vertical = viewport_h * v
+    llc        = eye - horizontal/2 - vertical/2 - w
+
+computed in float32 on (3,) tensors, in the JAX package's operation order.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+def _f32(x) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=torch.float32)
+
+
+@dataclasses.dataclass
+class Camera:
+    eye: torch.Tensor       # (3,) float32
+    lookat: torch.Tensor    # (3,)
+    up: torch.Tensor        # (3,)
+    fovy: torch.Tensor      # () degrees
+    width: int
+    height: int
+
+    @staticmethod
+    def create(eye, lookat, up, fovy, width, height) -> "Camera":
+        return Camera(eye=_f32(eye), lookat=_f32(lookat), up=_f32(up),
+                      fovy=_f32(fovy), width=int(width), height=int(height))
+
+    @property
+    def aspect(self):
+        return self.width / self.height
+
+
+def _normalize(a):
+    # ops/linalg.normalize: a * 1/max(|a|, 1e-20)
+    n = torch.sqrt(torch.clamp_min(torch.sum(a * a, dim=-1), 0.0))
+    return a * torch.reciprocal(torch.clamp_min(n, 1e-20))
+
+
+def camera_basis(cam: Camera):
+    """(origin, horizontal, vertical, lower_left_corner), each (3,) float32."""
+    theta = torch.deg2rad(cam.fovy)
+    h = torch.tan(theta / 2.0)
+    viewport_h = 2.0 * h
+    viewport_w = cam.aspect * viewport_h
+    w = _normalize(cam.eye - cam.lookat)
+    u = _normalize(torch.linalg.cross(cam.up, w))
+    v = torch.linalg.cross(w, u)
+    horizontal = viewport_w * u
+    vertical = viewport_h * v
+    llc = cam.eye - horizontal / 2.0 - vertical / 2.0 - w
+    return cam.eye, horizontal, vertical, llc

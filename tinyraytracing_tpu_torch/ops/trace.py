@@ -1,0 +1,353 @@
+"""Fused closest-hit / occlusion trace over the packed 8-wide BVH — the
+counterpart of ``tinyraytracing_tpu/ops/pallas_trace.py``.
+
+Two hand-written CUDA kernels (``csrc/trace.cu``, one thread per ray)
+replace the Pallas kernels reached from ``pallas_trace.fused_trace_planes``
+(closest hit: ``_kernel_wide_*``/``_kernel_smem*``/``_kernel_hbm`` with the
+slot loop ``_leaf_slots.run_slots``; occlusion: the same with
+``run_slots_occl``). The source note in ``trace.cu`` says what bounds them
+on an H100 and what the design does about it.
+
+Beside the kernels lives their plain PyTorch version, ``trace_plain``: the
+same per-ray wide walk, vectorised over rays with an (R, S) stack tensor,
+looping until every stack is empty. The wrappers take it only for tensors
+on the CPU; on a CUDA tensor they launch the kernel or raise.
+
+Semantics (identical to the JAX package's kernel, see its docstrings):
+per-ray t-bound start (``t_bound``), Woop-plane slot test with
+t >= t_min and |n.d| >= graze, the tie-banded emissive tie-break, the
+target-material early kill (t = -1, mtl = -3), barycentric shading
+normal / texcoord interpolated at the hit, and the 2-plane any-hit
+occlusion query (bt, seen).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from tinyraytracing_tpu_torch.config import RenderConfig, check_ported
+
+_INF = 3.0e38
+SLOT = 32          # triangle slots per leaf block (PackedLeaves layout)
+N_OUT = 9          # t, pn xyz, tc uv, mtl, em, slot
+
+# kernel launches per wrapper; each wrapper adds one where it launches
+LAUNCHES = {"trace_closest": 0, "trace_occlusion": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def stack_size(pk) -> int:
+    """Per-ray stack bound: every interior pop pushes <= 8 children, so the
+    high-water mark is wide_depth*7 + 1 (+ slack, as in the JAX kernel)."""
+    return max(64, pk.wide_depth * 7 + 16)
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch version of the per-ray wide walk
+# ---------------------------------------------------------------------------
+
+def trace_plain(pk, rays: torch.Tensor, config: RenderConfig, *,
+                attrs: bool = True, occl: bool = False) -> torch.Tensor:
+    """Reference walk on any device. ``rays`` is (8, R) float32 (o xyz,
+    d xyz, t_bound, target_mtl); returns (9, R) closest-hit planes or
+    (2, R) occlusion planes (bt, seen), exactly what the kernel writes."""
+    f32 = torch.float32
+    dev = rays.device
+    R = rays.shape[1]
+    c = lambda x: torch.tensor(x, dtype=f32, device=dev)
+    INF, eps1 = c(_INF), c(1.0 + config.tie_eps)
+    t_min, graze = c(config.t_min), c(config.n_dot_d_min)
+    zero, one = c(0.0), c(1.0)
+
+    ox, oy, oz, dx, dy, dz, tb, tg = rays.unbind(0)
+
+    def inv_of(d):
+        small = d.abs() < c(1e-18)
+        return torch.where(small, c(1e18), one) / torch.where(small, one, d)
+
+    invx, invy, invz = inv_of(dx), inv_of(dy), inv_of(dz)
+    oix, oiy, oiz = ox * invx, oy * invy, oz * invz
+    tga = tg > -1.5
+
+    if occl:
+        state = torch.stack([tb, torch.zeros_like(tb), torch.zeros_like(tb)])
+    else:
+        init = torch.tensor([0.0, 0.0, 1.0, 0.0, 0.0, -1.0, 0.0, -1.0],
+                            dtype=f32, device=dev)
+        state = torch.cat([tb[None], init[:, None].expand(8, R)])
+    # closest rows: bt pnx pny pnz tcu tcv mtl em slot; occlusion: bt bs bem
+    EM = 2 if occl else 7
+
+    S = stack_size(pk)
+    stack = torch.zeros((R, S), dtype=torch.int32, device=dev)
+    sp = torch.ones(R, dtype=torch.int64, device=dev)
+    WN, PS = pk.WN, pk.PS
+    lane_off = torch.arange(4, device=dev) * SLOT
+
+    while True:
+        act = torch.nonzero(sp > 0).squeeze(1)
+        if act.numel() == 0:
+            break
+        sp[act] -= 1
+        m = stack[act, sp[act]].to(torch.int64)
+        is_leaf = m < 0
+
+        # --- interior pops: slab-test the 8 children, push in reverse order
+        ia = act[~is_leaf]
+        if ia.numel():
+            row = WN[m[~is_leaf]]                      # (n, 128)
+            bte = state[0, ia] * eps1
+            ix, iy, iz = invx[ia], invy[ia], invz[ia]
+            ax_, ay_, az_ = oix[ia], oiy[ia], oiz[ia]
+            spi = sp[ia]
+            for ch in range(7, -1, -1):
+                b = row[:, ch * 8: ch * 8 + 8]
+                meta = b[:, 6]
+                t_ax = b[:, 0] * ix - ax_
+                t_bx = b[:, 3] * ix - ax_
+                t_ay = b[:, 1] * iy - ay_
+                t_by = b[:, 4] * iy - ay_
+                t_az = b[:, 2] * iz - az_
+                t_bz = b[:, 5] * iz - az_
+                t0 = torch.maximum(
+                    torch.maximum(torch.minimum(t_ax, t_bx),
+                                  torch.minimum(t_ay, t_by)),
+                    torch.minimum(t_az, t_bz))
+                t1 = torch.minimum(
+                    torch.minimum(torch.maximum(t_ax, t_bx),
+                                  torch.maximum(t_ay, t_by)),
+                    torch.maximum(t_az, t_bz))
+                dist = torch.where(t0 > 0.0, t0, t1)
+                keep = ((t1 >= t0) & (dist > 0.0)
+                        & (torch.clamp_min(t0, 0.0) <= bte) & (meta != -1.0))
+                k = torch.nonzero(keep).squeeze(1)
+                stack[ia[k], spi[k]] = meta[k].to(torch.int32)
+                spi = spi + keep
+            sp[ia] = spi
+
+        # --- leaf pops: the slot loop over the leaf's occupied slots
+        la = act[is_leaf]
+        if la.numel():
+            dec = -m[is_leaf] - 2
+            leaf = dec >> 6
+            cnt = dec & 63
+            st = state[:, la]
+            lx, ly, lz = ox[la], oy[la], oz[la]
+            ex, ey, ez = dx[la], dy[la], dz[la]
+            ltg, ltga = tg[la], tga[la]
+            for s in range(int(cnt.max())):
+                cols = (leaf * 128 + s)[:, None] + lane_off     # (n, 4)
+                blk = PS[:, cols]                               # (8, n, 4)
+                g = lambda a: blk[a // 4, :, a % 4]
+                h = lambda a: blk[4 + a // 4, :, a % 4]
+                ax, ay, az, bx = g(0), g(1), g(2), g(3)
+                by, bz, cx, cy = g(4), g(5), g(6), g(7)
+                cz, ou, ov, ow = g(8), g(9), g(10), g(11)
+                gx, gy, gz, em = g(12), g(13), g(14), g(15)
+
+                ldw = ex * cx + ey * cy + ez * cz
+                low = lx * cx + ly * cy + lz * cz + ow
+                z = ldw == 0.0
+                inv = torch.where(z, zero, one) / torch.where(z, one, ldw)
+                t = -low * inv
+                u = (lx * ax + ly * ay + lz * az + ou) + t * (
+                    ex * ax + ey * ay + ez * az)
+                v = (lx * bx + ly * by + lz * bz + ov) + t * (
+                    ex * bx + ey * by + ez * bz)
+                ndd = ex * gx + ey * gy + ez * gz
+                ok = ((ndd.abs() >= graze) & (ldw != 0.0) & (t >= t_min)
+                      & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
+                      & (cnt > s))
+                bt, bem = st[0], st[EM]
+                tm = torch.where(ok, t, INF)
+                tme = tm * eps1
+                near = (tm <= bt * eps1) & (bt <= tme) & (tm < INF)
+                repl = (~near & (tm < bt)) | (near & (em > 0.5) & (bem < 0.5))
+                mt_slot = h(15)
+                wrong = (mt_slot - ltg).abs() > 0.5
+                kill = ltga & (tme < bt) & wrong
+                sel = lambda kv, rv, old: torch.where(
+                    kill, kv, torch.where(repl, rv, old))
+                new_bt = sel(-one, tm, bt)
+                new_em = sel(zero, em, bem)
+                if occl:
+                    bs = sel(zero, torch.where(wrong, zero, one), st[1])
+                    st = torch.stack([new_bt, bs, new_em])
+                    continue
+                rows = [new_bt, *st[1:6], sel(c(-3.0), mt_slot, st[6]),
+                        new_em, st[8]]
+                if attrs:
+                    w = 1.0 - u - v
+                    for k, (a0, a1, a2) in enumerate(
+                            ((0, 3, 6), (1, 4, 7), (2, 5, 8),
+                             (9, 11, 13), (10, 12, 14))):
+                        val = h(a0) * w + h(a1) * u + h(a2) * v
+                        rows[1 + k] = torch.where(repl, val, st[1 + k])
+                    slot = (leaf * SLOT + s).to(f32)
+                    rows[8] = sel(-one, slot, st[8])
+                st = torch.stack(rows)
+            state[:, la] = st
+
+    return state[:2] if occl else state
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernels' wrappers
+# ---------------------------------------------------------------------------
+
+def _lib():
+    from tinyraytracing_tpu_torch.ops.kernels import library
+
+    lib = library("trace.cu")
+    if not getattr(lib, "_trt_typed", False):
+        P = ctypes.c_void_p
+        lib.trt_trace.argtypes = [P, P, P, ctypes.c_longlong, P, ctypes.c_int,
+                                  ctypes.c_int, ctypes.c_float, ctypes.c_float,
+                                  ctypes.c_float, P]
+        lib.trt_trace.restype = ctypes.c_int
+        lib.trt_max_stack.argtypes = []
+        lib.trt_max_stack.restype = ctypes.c_int
+        lib._trt_typed = True
+    return lib
+
+
+def trace_kernel(pk, rays: torch.Tensor, config: RenderConfig, *,
+                 attrs: bool = True, occl: bool = False) -> torch.Tensor:
+    """Launch the CUDA kernel on PyTorch's current stream; same contract as
+    ``trace_plain``. Raises on a CPU tensor or a failed launch."""
+    if not rays.is_cuda:
+        raise ValueError("trace_kernel needs CUDA tensors")
+    for name, x in (("rays", rays), ("WN", pk.WN), ("PS", pk.PS)):
+        if x.dtype != torch.float32 or not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous float32")
+        if x.device != rays.device:
+            raise ValueError(f"{name} is on {x.device}, rays on {rays.device}")
+    if rays.dim() != 2 or rays.shape[0] != 8:
+        raise ValueError(f"rays must be (8, R), got {tuple(rays.shape)}")
+    if pk.WN.shape[1] != 128 or pk.PS.shape[0] != 8:
+        raise ValueError("WN must be (n_wide, 128) and PS (8, cols)")
+    lib = _lib()
+    need = pk.wide_depth * 7 + 1
+    if need > lib.trt_max_stack():
+        raise ValueError(f"BVH needs a {need}-entry stack; the kernel holds "
+                         f"{lib.trt_max_stack()} (TRT_MAX_STACK in trace.cu)")
+    R = rays.shape[1]
+    out = torch.empty((2 if occl else N_OUT, R), dtype=torch.float32,
+                      device=rays.device)
+    query = 2 if occl else (0 if attrs else 1)
+    with torch.cuda.device(rays.device):
+        err = lib.trt_trace(
+            rays.data_ptr(), pk.WN.data_ptr(), pk.PS.data_ptr(),
+            pk.PS.shape[1], out.data_ptr(), R, query, config.t_min,
+            config.n_dot_d_min, 1.0 + config.tie_eps,
+            torch.cuda.current_stream(rays.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"trace kernel launch failed: cudaError {err}")
+    LAUNCHES["trace_occlusion" if occl else "trace_closest"] += 1
+    return out
+
+
+def _trace(pk, rays, config, attrs, occl):
+    if rays.is_cuda:
+        return trace_kernel(pk, rays, config, attrs=attrs, occl=occl)
+    if rays.device.type == "cpu":
+        return trace_plain(pk, rays, config, attrs=attrs, occl=occl)
+    raise ValueError(f"no trace implementation for device {rays.device}")
+
+
+def fused_trace_planes(scene, ox, oy, oz, dx, dy, dz, config: RenderConfig,
+                       t_bound=None, target_mtl=None, return_tri: bool = False,
+                       attrs: bool = True, query: str = "closest"):
+    """Fused closest-hit + shading-attribute trace (the JAX function's
+    signature and outputs, less its ``force_kernel`` switch).
+
+    Planar in, planar out: six (R,) ray planes -> (t, pn_x, pn_y, pn_z,
+    tc_u, tc_v, mtl, em) (R,) planes; ``pn`` is the unnormalized
+    interpolated shading normal, ``mtl`` the material id as f32 (-1 miss,
+    -3 killed), misses keep t at the bound (3e38 by default).
+    ``t_bound``/``target_mtl``: per-ray initial best t and shadow target
+    material (> -1.5 enables the early kill). ``attrs=False`` skips the
+    attribute interpolation (pn/tc/slot keep their initial values).
+    ``return_tri`` appends the hit triangle index as f32 (-1 miss/killed).
+    ``query="occlusion"`` returns the two planes (bt, seen); visibility is
+    ``(seen > 0.5) & (bt >= 0)``.
+    """
+    check_ported(config, ("walk_order",))
+    if query not in ("closest", "occlusion"):
+        raise ValueError(f"unknown query {query!r}")
+    occl = query == "occlusion"
+    if t_bound is None:
+        t_bound = torch.full_like(ox, _INF)
+    if target_mtl is None:
+        target_mtl = torch.full_like(ox, -2.0)
+    pk = scene.bvh.packed
+    rays = torch.stack([ox, oy, oz, dx, dy, dz, t_bound, target_mtl]).to(
+        torch.float32).contiguous()
+    outs = _trace(pk, rays, config, attrs, occl).unbind(0)
+    if occl:
+        return outs
+    if not return_tri:
+        return outs[:8]
+    slot = outs[8]
+    tri = torch.where(
+        slot >= 0.0,
+        pk.tid[torch.clamp_min(slot, 0).to(torch.int64)].to(torch.float32),
+        -1.0,
+    )
+    return outs[:8] + (tri,)
+
+
+def occlusion_trace_segmented(scene, ox, oy, oz, dx, dy, dz, t_bound,
+                              target_mtl, config: RenderConfig, n_seg: int):
+    """Occlusion query over ``n_seg`` concatenated equal segments of shadow
+    lanes (one per light), with optional per-segment live-lane compaction
+    (config.shadow_compact "on"; "auto" is off: the one-thread-per-ray
+    kernel has no packet for parked lanes to dilute, and on an H100 the
+    compaction's two sorts cost more than the occlusion time they saved on
+    grid:100000 — PERF.md, Findings). Returns ONE
+    (n_seg * R,) f32 visibility plane: 1.0 where some target-material hit
+    lies within the tie band of the bound and no wrong-material hit
+    strictly inside occluded the lane; parked lanes (t_bound == 0) give 0.
+
+    Compaction is a stable sort of each segment by "parked", the trace of
+    the sorted lanes, and the inverse sort; per-lane results do not depend
+    on lane order, so the visibility is bitwise the uncompacted one. The
+    segment's target material is re-broadcast from its live lanes (all
+    live lanes of a segment target the same light)."""
+    compact = config.shadow_compact == "on"
+    vis = lambda bt, seen: ((seen > 0.5) & (bt >= 0.0)).to(torch.float32)
+    if not compact or n_seg * 128 > ox.shape[0]:
+        bt, seen = fused_trace_planes(
+            scene, ox, oy, oz, dx, dy, dz, config,
+            t_bound=t_bound, target_mtl=target_mtl, query="occlusion",
+        )
+        return vis(bt, seen)
+
+    R = ox.shape[0] // n_seg
+    seg = lambda x: x.reshape(n_seg, R)
+    dead = (seg(t_bound) <= 0.0).to(torch.int32)
+    _, perm = torch.sort(dead, dim=1, stable=True)
+    take = lambda x: torch.gather(seg(x), 1, perm)
+    stb = take(t_bound)
+    seg_tg = torch.amax(
+        torch.where(seg(t_bound) > 0.0, seg(target_mtl),
+                    torch.full_like(stb, float("-inf"))),
+        dim=1, keepdim=True,
+    )
+    ctg = torch.where(stb > 0.0, seg_tg, torch.full_like(stb, -2.0))
+    flat = lambda a: a.reshape(n_seg * R)
+    cbt, cseen = fused_trace_planes(
+        scene, flat(take(ox)), flat(take(oy)), flat(take(oz)),
+        flat(take(dx)), flat(take(dy)), flat(take(dz)),
+        config, t_bound=flat(stb), target_mtl=flat(ctg), query="occlusion",
+    )
+    out = torch.empty_like(stb)
+    out.scatter_(1, perm, seg(vis(cbt, cseen)))       # inverse permutation
+    return flat(out)
