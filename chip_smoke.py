@@ -1,7 +1,9 @@
 """GPU smoke test of tinyraytracing_tpu_torch: builds the hand-written CUDA
 kernels, holds each against its plain PyTorch version on the card, renders
-the 100K-triangle scene through the CLI, and renders a small scene on the
-card and on the CPU to compare. Run from the repository root:
+through the CLI with the queue renderer (the 100K-triangle scene) and with
+the scan renderer (the 100K-triangle scene through the packet-BVH kernel,
+cornell through the slot kernel), and renders small scenes on the card and
+on the CPU to compare. Run from the repository root:
 
     python3 chip_smoke.py
 
@@ -23,11 +25,21 @@ import torch
 
 T_RTOL, T_ATOL = 1e-5, 1e-6      # _check_fused tolerance for t
 A_TOL = 1e-4                     # ... and for shading normal / texcoord
-SOURCE = "tinyraytracing_tpu_torch/csrc/trace.cu"
+CSRC = "tinyraytracing_tpu_torch/csrc/"
+SOURCES = {"trace_closest": CSRC + "trace.cu",
+           "trace_occlusion": CSRC + "trace.cu",
+           "bvh_intersect": CSRC + "bvh_intersect.cu",
+           "slot_intersect": CSRC + "slot_intersect.cu"}
 REPLACES = {
     "trace_closest": "tinyraytracing_tpu/ops/pallas_trace.py:962",
     "trace_occlusion": "tinyraytracing_tpu/ops/pallas_trace.py:206",
+    "bvh_intersect": "tinyraytracing_tpu/ops/pallas_bvh.py:188",
+    "slot_intersect": "tinyraytracing_tpu/ops/pallas_intersect.py:168",
 }
+# H100 SXM datasheet peaks: float32 outside the tensor
+# cores, and HBM bandwidth
+PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
+SCAN_CHUNK = 65536               # RenderConfig.ray_chunk: one scan dispatch
 
 
 def log(*a):
@@ -47,6 +59,23 @@ def _events_ms(fn, runs):
         torch.cuda.synchronize()
         times.append(e0.elapsed_time(e1))
     return statistics.median(times)
+
+
+def _bound(ops, nbytes):
+    """(ms, "operations" | "bytes"): the least time for ``ops`` float32
+    operations and ``nbytes`` of device memory traffic at the card's peaks."""
+    t_ops, t_bytes = ops / PEAK_FLOPS, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _timed_ms(fn):
+    """(result, milliseconds) of one run of ``fn()`` (CUDA events)."""
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    out = fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return out, e0.elapsed_time(e1)
 
 
 def _ulps(a, b):
@@ -156,11 +185,24 @@ def _phase2_scenes():
     from tinyraytracing_tpu_torch.models.procedural import cornell_box, quad_grid
     from tinyraytracing_tpu_torch.ops.bvh import attach_bvh
 
-    grid, cam = quad_grid(100_000, 1024, 1024)                # leaf 8
+    grid, cam = quad_grid(100_000, 1024, 1024, device="cpu")  # leaf 8
     yield "grid100k leaf 8", grid, cam
     yield "grid100k leaf 32", attach_bvh(grid, RenderConfig(leaf_size=32)), cam
-    scene, cam = cornell_box(1024, 1024)
+    scene, cam = cornell_box(1024, 1024, device="cpu")
     yield "cornell leaf 8", attach_bvh(scene, RenderConfig(leaf_size=8)), cam
+
+
+def _walk_bound(stats, R, in_planes, out_planes):
+    """Bound of one walk launch from what its plain version counted on the
+    same rays: the slab and slot tests, and the bytes of the tree and
+    payload it reads (each counted once), plus the ray planes in and out."""
+    from tinyraytracing_tpu_torch.ops.bvh_intersect import SLAB_FLOPS
+    from tinyraytracing_tpu_torch.ops.slot_test import SLOT_FLOPS
+
+    ops = (stats.get("node_visits", 0) * SLAB_FLOPS
+           + stats["slot_tests"] * SLOT_FLOPS)
+    nbytes = 4 * R * (in_planes + out_planes) + stats["scene_bytes"]
+    return _bound(ops, nbytes), nbytes
 
 
 def phase_kernels(dev):
@@ -169,7 +211,7 @@ def phase_kernels(dev):
 
     cfg = RenderConfig()
     reports = {k: {"max_abs_err": 0.0} for k in REPLACES}
-    ok = True
+    ok = ok2b = True
     gen = torch.Generator().manual_seed(2024)
     t0 = time.perf_counter()
     for name, scene, cam in _phase2_scenes():
@@ -188,19 +230,26 @@ def phase_kernels(dev):
                  ("shadow occlusion", shadow, False, True, "trace_occlusion")]
         for label, r, attrs, occl, kname in cases:
             k = trace.trace_kernel(pk, r, cfg, attrs=attrs, occl=occl)
-            p = trace.trace_plain(pk, r, cfg, attrs=attrs, occl=occl)
+            stats = {}
+            p = trace.trace_plain(pk, r, cfg, attrs=attrs, occl=occl,
+                                  stats=stats)
             torch.cuda.synchronize()
             ok &= _compare(label, k, p, attrs, occl, reports[kname])
             kms = _events_ms(lambda: trace.trace_kernel(
                 pk, r, cfg, attrs=attrs, occl=occl), 10)
             pms = _events_ms(lambda: trace.trace_plain(
                 pk, r, cfg, attrs=attrs, occl=occl), 2)
+            (bms, by), nbytes = _walk_bound(stats, r.shape[1], 8,
+                                            2 if occl else 9)
             log(f"    time at {r.shape[1]} rays: kernel {kms:.4f} ms, "
-                f"plain {pms:.1f} ms (median, CUDA events)")
+                f"plain {pms:.1f} ms (median, CUDA events); {stats['node_visits']} "
+                f"slab tests, {stats['slot_tests']} slot tests, {nbytes} bytes "
+                f"read or written: bound {bms:.4f} ms ({by})")
             # the main path's dispatches: bounce and shadow rays on its tree
             if name == "grid100k leaf 8" and label in (
                     "closest attrs", "shadow occlusion"):
-                reports[kname].update(ms=kms, plain_ms=pms)
+                reports[kname].update(ms=kms, plain_ms=pms, bound_ms=bms,
+                                      bound_by=by)
         # return_tri: the slot -> triangle map through tid, kernel path
         planes = lambda x: tuple(x[i] for i in range(8))
         kt = trace.fused_trace_planes(scene, *planes(rays)[:6], cfg,
@@ -221,8 +270,114 @@ def phase_kernels(dev):
         log(f"  occlusion_trace_segmented compact on vs off: {bad} lanes differ, "
             f"{int(vis['on'].sum())} visible")
         ok &= bad == 0
+        # phase 2b: the scan path's kernels on the same trees
+        kinds = ("bvh", "slot") if name.startswith("cornell") else ("bvh",)
+        ok2b &= phase_intersect_kernels(name, scene, cam, kinds, gen, reports)
         t0 = time.perf_counter()
-    return ok, reports
+    from tinyraytracing_tpu_torch.models.procedural import quad_grid
+
+    grid6k, cam = quad_grid(6000, device=dev)
+    ok2b &= phase_intersect_kernels("grid6000 leaf 8", grid6k, cam, ("slot",),
+                                    gen, reports)
+    return ok, ok2b, reports
+
+
+# ---------------------------------------------------------------------------
+# phase 2b: the scan path's kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def _scan_probe_rays(scene, cam, gen):
+    """The scan path's three dispatches at SCAN_CHUNK rays, as (6, R)
+    planes: jittered camera rays; one cosine-diffuse bounce ray from each
+    camera hit; one shadow ray from each camera hit toward a random point
+    of light 0. Misses park at 1e30 as the scan renderer parks dead rays
+    (bounce direction (0, 0, 1); the shadow direction its NEE computes).
+    Hits come from the packet-BVH kernel."""
+    import dataclasses
+
+    from tinyraytracing_tpu_torch.config import RenderConfig
+    from tinyraytracing_tpu_torch.models.camera import generate_rays
+    from tinyraytracing_tpu_torch.ops.intersect import intersect
+    from tinyraytracing_tpu_torch.ops.linalg import dot, normalize
+    from tinyraytracing_tpu_torch.ops.sampling import sample_lobe
+
+    dev = scene.device
+    side = int(SCAN_CHUNK ** 0.5)
+    o, d = generate_rays(dataclasses.replace(cam, width=side, height=side),
+                         (0, 2024), dev)
+    n = o.shape[0]
+    hit = intersect(scene, o, d, RenderConfig(intersector="bvh_pallas"))
+    ok = hit.hit[:, None]
+    point = torch.where(ok, o + hit.t[:, None] * d,
+                        torch.tensor(1.0e30, device=dev))
+    gn = scene.gn[hit.idx]
+    nrm = torch.where((dot(gn, d) > 0.0)[:, None], -gn, gn)
+    u = torch.rand(2, n, generator=gen).to(dev)
+    ones = torch.ones(n, device=dev)
+    bd = sample_lobe(nrm, u[0], u[1], ones > 0, ones)
+    bd = torch.where(ok, bd, torch.tensor([0.0, 0.0, 1.0], device=dev))
+    b = torch.rand(n, 3, generator=gen).to(dev)
+    b = b / b.sum(1, keepdim=True)
+    lp = (b[:, :1] * scene.lt_v0[0, 0] + b[:, 1:2] * scene.lt_v1[0, 0]
+          + b[:, 2:] * scene.lt_v2[0, 0])
+    sd = normalize(lp - point)
+    planes = lambda a, c: torch.cat([a.T, c.T]).contiguous()
+    return {"camera": planes(o, d), "bounce": planes(point, bd),
+            "shadow": planes(point, sd)}
+
+
+def phase_intersect_kernels(name, scene, cam, kinds, gen, reports):
+    """Kernels 4 ("bvh") and 5 ("slot") against their plain versions on the
+    scan path's three kinds of rays: every output plane bitwise equal."""
+    from tinyraytracing_tpu_torch.config import RenderConfig
+    from tinyraytracing_tpu_torch.ops import bvh_intersect as bi
+    from tinyraytracing_tpu_torch.ops import slot_intersect as si
+
+    cfg = RenderConfig()
+    t0 = time.perf_counter()
+    rays = _scan_probe_rays(scene, cam, gen)
+    pk = scene.bvh.packed
+    P, n_chunks = scene.slot_payload
+    T = scene.num_triangles
+    log(f"phase 2b [{name}]: {T} triangles, {n_chunks} slot chunks, "
+        f"{SCAN_CHUNK} rays of each kind; setup {time.perf_counter() - t0:.1f}s")
+    ok = True
+    for kind in kinds:
+        kname = "bvh_intersect" if kind == "bvh" else "slot_intersect"
+        for label, r in rays.items():
+            R = r.shape[1]
+            stats = {}
+            if kind == "bvh":
+                kern = lambda: bi.bvh_intersect_kernel(pk, r, cfg)
+                k = kern()
+                p, pms = _timed_ms(lambda: bi.bvh_intersect_plain(pk, r, cfg, stats))
+                work = (f"{stats['node_visits']} slab tests, "
+                        f"{stats['slot_tests']} slot tests")
+            else:
+                kern = lambda: si.slot_intersect_kernel(P, T, r, cfg)
+                k = kern()
+                p, pms = _timed_ms(lambda: si.slot_intersect_plain(P, T, r, cfg, stats))
+                work = f"{stats['slot_tests']} slot tests"
+            torch.cuda.synchronize()
+            bad = [f for f, a, b in zip(("t", "tri/idx", "u", "v"), k, p)
+                   if not torch.equal(a, b)]
+            hit = k[0] < 3.0e38
+            err = float((k[0][hit] - p[0][hit]).abs().max()) if hit.any() else 0.0
+            kms = _events_ms(kern, 20)
+            (bms, by), nbytes = _walk_bound(stats, R, 6, 4)
+            log(f"  {kname} {label}: planes not bitwise equal {bad or 'none'}, "
+                f"{int(hit.sum())} hits; kernel {kms:.4f} ms, plain {pms:.1f} ms "
+                f"(CUDA events); {work}, {nbytes} bytes read or written: bound "
+                f"{bms:.4f} ms ({by})")
+            ok &= not bad
+            rep = reports[kname]
+            rep["max_abs_err"] = max(rep["max_abs_err"], err)
+            # the main path's dispatch: bounce rays on the tree the CLI
+            # builds (kernel 4), on cornell (kernel 5)
+            if label == "bounce" and (name, kind) in (("grid100k leaf 8", "bvh"),
+                                                      ("cornell leaf 8", "slot")):
+                rep.update(ms=kms, plain_ms=pms, bound_ms=bms, bound_by=by)
+    return ok
 
 
 # ---------------------------------------------------------------------------
@@ -287,8 +442,174 @@ def phase_cli(dev, out_dir):
 
 
 # ---------------------------------------------------------------------------
+# phase 3b: the scan renderer through the CLI at full size
+# ---------------------------------------------------------------------------
+
+def _profiled(fn, kernel_name):
+    """Device time of one run of ``fn`` under torch.profiler (CUDA activity
+    only): (kernels, device busy ms, ms in kernels whose name holds
+    ``kernel_name``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]):   # start-up, untimed
+        torch.ones(1, device="cuda").sum()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.device_time_total for e in dev)
+    kern_us = sum(e.device_time_total for e in dev if kernel_name in e.name)
+    return len(dev), busy_us / 1e3, kern_us / 1e3
+
+
+def _traced_rays(render_args):
+    """(closest-hit rays, shadow rays) of the render ``render_args`` gives:
+    the same render once more with the tracer's stats summed on the device
+    and read once at the end."""
+    import tinyraytracing_tpu_torch.render as render_mod
+
+    real, acc = render_mod.trace, {}
+
+    def trace_stats(*a, **k):
+        rad, stats = real(*a, return_stats=True, **k)
+        for key, v in stats.items():
+            acc[key] = acc.get(key, 0) + v.sum()
+        return rad
+
+    render_mod.trace = trace_stats
+    try:
+        a, k = render_args
+        render_mod.render(*a, **k)
+    finally:
+        render_mod.trace = real
+    return int(acc["primary"]), int(acc["shadow"])
+
+
+def phase_cli_scan(dev, out_dir, size=1024):
+    """Two scan renders through the CLI, each with every launch count set to
+    0 just before and read just after: grid:100000 with "auto" (a BVH is
+    attached: the packet-BVH kernel) and cornell with "pallas" (the slot
+    kernel). 1024x1024 at 1 spp is 16 chunks of 65,536 rays x 16 bounces x
+    (1 closest hit + 1 shadow dispatch) = 512 launches of the kernel.
+
+    Only the render call is timed (synchronised before and after); nothing
+    inside it is wrapped. The same render is then run once more, timed the
+    same way, and twice untimed: under torch.profiler for its kernel and
+    device-busy time, and with the tracer's stats for the traced-ray
+    count."""
+    n_chunks = -(-size * size // SCAN_CHUNK)
+    expect = n_chunks * 16 * 2
+    import tinyraytracing_tpu_torch.render as render_mod
+    from tinyraytracing_tpu_torch import cli
+    from tinyraytracing_tpu_torch.ops import bvh_intersect as bi
+    from tinyraytracing_tpu_torch.ops import slot_intersect as si
+    from tinyraytracing_tpu_torch.ops import trace
+
+    real_render = render_mod.render
+    seen = {}
+
+    def render_timed(*a, **k):
+        seen["args"] = (a, k)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = real_render(*a, **k)
+        torch.cuda.synchronize()
+        seen.update(img=img, seconds=time.perf_counter() - t0)
+        return img
+
+    runs = (("grid:100000", "auto", "bvh_intersect"),
+            ("cornell", "pallas", "slot_intersect"))
+    ok, launches = True, {}
+    for scene_arg, isect, kname in runs:
+        argv = ["--scene", scene_arg, "--renderer", "scan", "--intersector",
+                isect, "--width", str(size), "--height", str(size), "--spp", "1",
+                "--out", f"{out_dir}/scan_{isect}.png"]
+        seen.clear()
+        torch.cuda.reset_peak_memory_stats()
+        render_mod.render = render_timed
+        for mod in (trace, bi, si):
+            mod.reset_launch_counts()
+        try:
+            t0 = time.perf_counter()
+            rc = cli.main(argv)
+            wall = time.perf_counter() - t0
+        finally:
+            render_mod.render = real_render
+        counts = {**bi.LAUNCHES, **si.LAUNCHES, **trace.LAUNCHES}
+        peak = torch.cuda.max_memory_allocated()
+        img, secs = seen["img"], seen["seconds"]
+        mean = float(img.mean())
+        a, k = seen["args"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real_render(*a, **k)                  # the same render, warm
+        torch.cuda.synchronize()
+        secs_again = time.perf_counter() - t0
+        n_dev, busy_ms, kern_ms = _profiled(lambda: real_render(*a, **k), kname)
+        primary, shadow = _traced_rays(seen["args"])
+        rays = primary + shadow
+        render_ms = 1e3 * secs
+        log(f"phase 3b: cli {' '.join(argv[:-2])} (spp cut from config 3's "
+            f"512 to 1 only to fit the smoke's time limit) -> rc {rc}")
+        log(f"  cli wall {wall:.2f}s incl. scene + BVH build; render "
+            f"{secs:.3f}s, {rays} traced rays ({primary} closest-hit + "
+            f"{shadow} shadow), {rays / secs:.4g} rays/s; the same render "
+            f"again {secs_again:.3f}s, {rays / secs_again:.4g} rays/s")
+        log(f"  the same render under torch.profiler: {n_dev} device ops "
+            f"({n_dev / (n_chunks * 16):.0f} per bounce), {kern_ms:.1f} ms in "
+            f"{kname} = {100 * kern_ms / render_ms:.1f}% of the unprofiled "
+            f"render, device busy {busy_ms:.1f} ms: the card idles "
+            f"{100 * (1 - busy_ms / render_ms):.0f}%")
+        log(f"  kernel launches {counts}; peak device memory "
+            f"{peak / 2**20:.1f} MiB; image mean {mean:.6g}, shape "
+            f"{tuple(img.shape)}")
+        want = {k: (expect if k == kname else 0) for k in counts}
+        ok &= (rc == 0 and counts == want and bool(torch.isfinite(img).all())
+               and mean > 0)
+        launches[kname] = counts[kname]
+    return ok, launches
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the same render on the card and on the CPU
 # ---------------------------------------------------------------------------
+
+def _compare_images(label, imgs, secs, size):
+    a, b = imgs["cuda"], imgs["cpu"]
+    close = torch.isclose(a, b, rtol=1e-4, atol=1e-5).all(dim=-1)
+    diff = (a - b).abs().amax(dim=-1)
+    worst = int(diff.argmax())
+    mean_rel = abs(float(a.mean()) - float(b.mean())) / float(b.mean())
+    log(f"{label}: cuda {secs['cuda']:.2f}s, cpu {secs['cpu']:.2f}s; "
+        f"{int((~close).sum())} of {close.numel()} pixels outside rtol 1e-4/"
+        f"atol 1e-5 (bound: 1%), image means differ {mean_rel:.3g} relative "
+        f"(bound 1e-4); worst pixel {divmod(worst, size)} off by "
+        f"{float(diff.max()):.4g} ({a.view(-1, 3)[worst].tolist()} vs "
+        f"{b.view(-1, 3)[worst].tolist()})")
+    return bool(close.float().mean() >= 0.99) and mean_rel <= 1e-4
+
+
+def phase_scan_vs_scan(dev):
+    """Phase 4b: the scan render with intersector "bvh_pallas" on the card
+    (the kernel) and on the CPU (its plain version)."""
+    from tinyraytracing_tpu_torch.config import RenderConfig
+    from tinyraytracing_tpu_torch.models.procedural import cornell_box
+    from tinyraytracing_tpu_torch.ops.bvh import attach_bvh
+    from tinyraytracing_tpu_torch.ops.rng import master_key_data
+    from tinyraytracing_tpu_torch.render import render
+
+    cfg = RenderConfig(intersector="bvh_pallas")
+    scene, cam = cornell_box(64, 64, device="cpu")
+    scene = attach_bvh(scene, cfg)
+    imgs, secs = {}, {}
+    for where, s in (("cuda", scene.to(dev)), ("cpu", scene)):
+        t0 = time.perf_counter()
+        imgs[where] = render(s, cam, master_key_data(0), cfg, 2).cpu()
+        secs[where] = time.perf_counter() - t0
+    return _compare_images("phase 4b: scan cornell 64x64 @ 2 spp, bvh_pallas",
+                           imgs, secs, 64)
 
 def phase_render_vs_render(dev):
     from tinyraytracing_tpu_torch.config import RenderConfig
@@ -296,7 +617,7 @@ def phase_render_vs_render(dev):
     from tinyraytracing_tpu_torch.models.procedural import quad_grid
     from tinyraytracing_tpu_torch.ops.rng import master_key_data
 
-    scene, cam = quad_grid(6000, 64, 64)
+    scene, cam = quad_grid(6000, 64, 64, device="cpu")
     cfg, key = RenderConfig(), master_key_data(0)
     imgs, secs = {}, {}
     for where, s in (("cuda", scene.to(dev)), ("cpu", scene)):
@@ -304,18 +625,8 @@ def phase_render_vs_render(dev):
         img, _ = render_fused_queue(s, cam, key, cfg, 4, lanes=4096)
         imgs[where] = img.cpu().reshape(64, 64, 3)
         secs[where] = time.perf_counter() - t0
-    a, b = imgs["cuda"], imgs["cpu"]
-    close = torch.isclose(a, b, rtol=1e-4, atol=1e-5).all(dim=-1)
-    diff = (a - b).abs().amax(dim=-1)
-    worst = int(diff.argmax())
-    mean_rel = abs(float(a.mean()) - float(b.mean())) / float(b.mean())
-    log(f"phase 4: grid:6000 64x64 @ 4 spp, 4096 lanes: cuda {secs['cuda']:.2f}s, "
-        f"cpu {secs['cpu']:.2f}s; {int((~close).sum())} of {close.numel()} pixels "
-        f"outside rtol 1e-4/atol 1e-5 (bound: 1%), image means differ "
-        f"{mean_rel:.3g} relative (bound 1e-4); worst pixel {divmod(worst, 64)} "
-        f"off by {float(diff.max()):.4g} ({a.view(-1, 3)[worst].tolist()} vs "
-        f"{b.view(-1, 3)[worst].tolist()})")
-    return bool(close.float().mean() >= 0.99) and mean_rel <= 1e-4
+    return _compare_images("phase 4: grid:6000 64x64 @ 4 spp, 4096 lanes",
+                           imgs, secs, 64)
 
 
 def main() -> int:
@@ -338,20 +649,31 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  {src}: {line.strip()}")
 
-    ok2, reports = phase_kernels(dev)
+    # full float32 products everywhere (no TF32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ok2, ok2b, reports = phase_kernels(dev)
     with tempfile.TemporaryDirectory() as tmp:
         ok3, launches = phase_cli(dev, tmp)
+        ok3b, scan_launches = phase_cli_scan(dev, tmp)
+    launches.update(scan_launches)
     ok4 = phase_render_vs_render(dev)
+    ok4b = phase_scan_vs_scan(dev)
 
-    kern = [dict(name=k, route="cuda", source=SOURCE, replaces=REPLACES[k],
+    # no single PyTorch call computes a BVH or brute-force closest hit
+    kern = [dict(name=k, route="cuda", source=SOURCES[k], replaces=REPLACES[k],
                  launches=launches.get(k, 0), max_abs_err=r["max_abs_err"],
-                 ms=r.get("ms"), plain_ms=r.get("plain_ms"))
+                 ms=r.get("ms"), plain_ms=r.get("plain_ms"),
+                 bound_ms=r.get("bound_ms"), bound_by=r.get("bound_by"),
+                 library_ms=None)
             for k, r in reports.items()]
     log(json.dumps({"kernels": kern}))
-    ok = ok2 and ok3 and ok4
-    log(f"phases: kernels {'ok' if ok2 else 'FAILED'}, cli render "
-        f"{'ok' if ok3 else 'FAILED'}, render vs render {'ok' if ok4 else 'FAILED'}")
-    if not ok:
+    phases = {"kernels": ok2, "scan kernels": ok2b, "cli render": ok3,
+              "cli scan render": ok3b, "render vs render": ok4,
+              "scan vs scan": ok4b}
+    log("phases: " + ", ".join(f"{k} {'ok' if v else 'FAILED'}"
+                               for k, v in phases.items()))
+    if not all(phases.values()):
         return 1
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,6 @@
-"""The CUDA trace kernels (csrc/trace.cu) against their plain PyTorch
-version on the same CUDA tensors, at small size. They need a CUDA device
+"""The CUDA kernels (csrc/trace.cu, csrc/bvh_intersect.cu,
+csrc/slot_intersect.cu) against their plain PyTorch versions on the same
+CUDA tensors, at small size. They need a CUDA device
 and nvcc, so they skip elsewhere; on the GPU machine run
 
     python -m pytest tests/test_torch_kernels.py -q --noconftest
@@ -16,7 +17,7 @@ import torch
 
 from tinyraytracing_tpu_torch.config import RenderConfig
 from tinyraytracing_tpu_torch.models.procedural import cornell_box, quad_grid
-from tinyraytracing_tpu_torch.ops import trace
+from tinyraytracing_tpu_torch.ops import bvh_intersect, intersect, slot_intersect, trace
 from tinyraytracing_tpu_torch.ops.bvh import attach_bvh
 
 pytestmark = pytest.mark.cuda
@@ -31,10 +32,10 @@ def device():
 
 def _scene(name, device):
     if name == "cornell":
-        scene, _ = cornell_box(32, 32)
+        scene, _ = cornell_box(32, 32, device="cpu")
         scene = attach_bvh(scene, RenderConfig(leaf_size=8))
     else:
-        scene, _ = quad_grid(6000)                       # leaf 8
+        scene, _ = quad_grid(6000, device="cpu")         # leaf 8
         if name == "grid32":   # the JAX CLI's leaf width for big scenes
             scene = attach_bvh(scene, RenderConfig(leaf_size=32))
     return scene.to(device)
@@ -82,3 +83,39 @@ def test_wrapper_launches_kernel_on_cuda(device):
                              RenderConfig(), t_bound=x + 900,
                              target_mtl=x, query="occlusion")
     assert trace.LAUNCHES == {"trace_closest": 1, "trace_occlusion": 1}
+
+
+@pytest.mark.parametrize("shadow", [False, True])
+@pytest.mark.parametrize("name", ["cornell", "grid", "grid32"])
+def test_intersect_kernels_bitwise_equal_plain(name, shadow, device):
+    """The packet-BVH and slot kernels against their plain versions."""
+    scene = _scene(name, device)
+    rays = _rays(4096, device, scene if shadow else None)[:6].contiguous()
+    cfg = RenderConfig()
+    k = bvh_intersect.bvh_intersect_kernel(scene.bvh.packed, rays, cfg)
+    p = bvh_intersect.bvh_intersect_plain(scene.bvh.packed, rays, cfg)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(k, p))
+    P, _ = scene.slot_payload
+    k = slot_intersect.slot_intersect_kernel(P, scene.num_triangles, rays, cfg)
+    p = slot_intersect.slot_intersect_plain(P, scene.num_triangles, rays, cfg)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(k, p))
+
+
+def test_auto_intersect_launches_kernels_on_cuda(device):
+    """"auto" on CUDA: the packet-BVH kernel with a BVH, the slot kernel
+    without; counted once per launch."""
+    import dataclasses
+
+    scene = _scene("cornell", device)
+    o = torch.tensor([[278.0, 273.0, -500.0]], device=device).expand(256, 3)
+    d = torch.tensor([[0.0, 0.0, 1.0]], device=device).expand(256, 3)
+    bvh_intersect.reset_launch_counts()
+    slot_intersect.reset_launch_counts()
+    a = intersect.intersect(scene, o, d, RenderConfig())
+    b = intersect.intersect(dataclasses.replace(scene, bvh=None), o, d,
+                            RenderConfig())
+    assert bvh_intersect.LAUNCHES == {"bvh_intersect": 1}
+    assert slot_intersect.LAUNCHES == {"slot_intersect": 1}
+    assert torch.equal(a.t, b.t) and torch.equal(a.idx, b.idx)

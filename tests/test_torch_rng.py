@@ -68,3 +68,36 @@ def test_path_keys_and_bounce_uniforms_equal_jax():
     # the camera jitter draws straight from the key words
     np.testing.assert_array_equal(trng.bits_to_uniform(tk[0]).numpy(),
                                   np.asarray(jrng.bits_to_uniform(jk[0])))
+
+
+@pytest.mark.parametrize("seed", [0, 3, 12345, 2**32 - 1])
+def test_split_and_fold_in_equal_jax(seed):
+    key = jax.random.PRNGKey(seed)
+    tkey = trng.master_key_data(seed)
+    want = np.asarray(jax.random.split(key)).astype(np.int64)
+    got = np.asarray(trng.split(tkey), np.int64)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        np.asarray(trng.split(tkey, 5), np.int64),
+        np.asarray(jax.random.split(key, 5)).astype(np.int64))
+    for data in (0, 1, 15, 2**31 + 7):
+        np.testing.assert_array_equal(
+            np.asarray(trng.fold_in(tkey, data), np.int64),
+            np.asarray(jax.random.fold_in(key, data)).astype(np.int64))
+    # the scan renderer's chains: fold_in(fold_in(key, depth), purpose)
+    k2 = jax.random.fold_in(jax.random.fold_in(key, 9), 1)
+    assert trng.fold_in(trng.fold_in(tkey, 9), 1) == tuple(
+        int(x) for x in np.asarray(k2))
+
+
+@pytest.mark.parametrize("shape", [(2, 16 * 12), (300, 1, 4), (96, 3, 4),
+                                   (5, 777)])
+@pytest.mark.parametrize("seed", [0, 7, 2**31 + 5])
+def test_uniform_equals_jax(seed, shape):
+    """The camera jitter (2, W*H), NEE (R, L, 4) and BSDF (5, R) draws."""
+    key = jax.random.fold_in(jax.random.PRNGKey(seed), 4)
+    tkey = trng.fold_in(trng.master_key_data(seed), 4)
+    want = np.asarray(jax.random.uniform(key, shape, dtype=jnp.float32))
+    got = trng.uniform(tkey, shape)
+    assert got.dtype == torch.float32 and tuple(got.shape) == shape
+    np.testing.assert_array_equal(got.numpy(), want)

@@ -38,13 +38,13 @@ def _assert_scene_equal(jscene, tscene):
 
 def _scenes(case):
     if case == "cornell":
-        return jproc.cornell_box(32, 32)[0], tproc.cornell_box(32, 32)[0]
+        return jproc.cornell_box(32, 32)[0], tproc.cornell_box(32, 32, device="cpu")[0]
     if case == "cornell+bvh8":
         js, ts = _scenes("cornell")
         return (jbvh.attach_bvh(js, JConfig(leaf_size=8)),
                 tbvh.attach_bvh(ts, RenderConfig(leaf_size=8)))
     if case == "grid6000+bvh8":
-        return jproc.quad_grid(6000)[0], tproc.quad_grid(6000)[0]
+        return jproc.quad_grid(6000)[0], tproc.quad_grid(6000, device="cpu")[0]
     if case == "grid6000+bvh32":
         js, ts = _scenes("grid6000+bvh8")
         return (jbvh.attach_bvh(js, JConfig(leaf_size=32)),
@@ -68,15 +68,15 @@ def test_scene_arrays_equal_jax(case):
 
 def test_scene_from_arrays_round_trip():
     js, _ = _scenes("grid6000+bvh8")
-    ts = scene_from_arrays(*flatten_scene(js))
+    ts = scene_from_arrays(*flatten_scene(js), device="cpu")
     d, statics = scene_to_arrays(ts)
-    again = scene_from_arrays(d, statics)
+    again = scene_from_arrays(d, statics, device="cpu")
     _assert_scene_equal(js, again)
     assert again.bvh.packed.n_wide == js.bvh.packed.n_wide
     assert again.to("cpu").num_triangles == js.num_triangles
     # a scene without a BVH round-trips too
     jc, _ = _scenes("cornell")
-    tc = scene_from_arrays(*flatten_scene(jc))
+    tc = scene_from_arrays(*flatten_scene(jc), device="cpu")
     assert tc.bvh is None
     _assert_scene_equal(jc, tc)
 
@@ -142,7 +142,7 @@ def test_load_scene_from_files_equals_jax(tmp_path):
         (tmp_path / name).write_text(text)
     paths = [str(tmp_path / n) for n in ("s.xml", "s.obj", "s.mtl")]
     js, jcam = jload(*paths, with_bvh=True)
-    ts, tcam = tload(*paths, with_bvh=True)
+    ts, tcam = tload(*paths, with_bvh=True, device="cpu")
     _assert_scene_equal(js, ts)
     assert ts.light_names == ("Lamp",) and ts.num_triangles == 3
     for f in ("eye", "lookat", "up", "fovy"):
@@ -178,3 +178,23 @@ def test_scene_to_device_keeps_arrays():
     moved = ts.to(torch.device("cpu"))
     assert moved.bvh.packed.PS.data_ptr() == ts.bvh.packed.PS.data_ptr()
     assert moved.device.type == "cpu"
+
+
+@pytest.mark.parametrize("make", ["cornell_box", "cornell_box_specular",
+                                  "quad_grid", "load_scene",
+                                  "scene_from_arrays"])
+def test_constructors_default_to_the_card(make):
+    """The user-facing constructors put the scene on the CUDA device unless
+    the caller asks for the CPU: without a card the default raises."""
+    import inspect
+
+    from tinyraytracing_tpu_torch.models import scene as tscene
+
+    fn = getattr(tproc, make, None) or getattr(tscene, make)
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if make in ("cornell_box", "cornell_box_specular", "quad_grid"):
+        args = (40,) if make == "quad_grid" else ()
+        assert fn(*args, 8, 8, device="cpu")[0].device.type == "cpu"
+        if not torch.cuda.is_available():
+            with pytest.raises((AssertionError, RuntimeError)):
+                fn(*args, 8, 8)

@@ -88,3 +88,29 @@ def test_walk_order_near_is_not_ported():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ttrace.fused_trace_planes(ts, x, x, x, x, x, x + 1.0,
                                   RenderConfig(walk_order="near"))
+
+
+def test_plain_walk_counts_what_the_kernel_reads():
+    """The stats behind the kernels' bounds: each float of the tree and the
+    payload counted once, only where the walk reads it — the shading rows
+    only for closest hits with attributes, never the whole arrays."""
+    _, ts = scene_pair("grid")
+    pk = ts.bvh.packed
+    rng = np.random.default_rng(24)
+    org, d = random_rays(rng, 256, *RAYS["grid"])
+    planes = [torch.from_numpy(np.ascontiguousarray(a[:, k], np.float32))
+              for a in (org, d) for k in range(3)]
+    rays = torch.stack([*planes, torch.full((256,), 3.0e38),
+                        torch.full((256,), -2.0)]).contiguous()
+    got = {}
+    for attrs, occl in ((True, False), (False, False), (False, True)):
+        stats = {}
+        ttrace.trace_plain(pk, rays, RenderConfig(), attrs=attrs, occl=occl,
+                           stats=stats)
+        got[attrs, occl] = stats
+    full, bare, occlusion = got[True, False], got[False, False], got[False, True]
+    assert full["node_visits"] == bare["node_visits"] > 256
+    assert full["slot_tests"] == bare["slot_tests"] > 256
+    assert occlusion == bare              # no target: the same walk and reads
+    assert 0 < bare["scene_bytes"] < full["scene_bytes"]
+    assert full["scene_bytes"] < (pk.WN.nbytes + pk.PS.nbytes) / 2

@@ -4,6 +4,9 @@ the arithmetic of the two aligned, and save the images:
     XLA_FLAGS=--xla_cpu_max_isa=AVX JAX_PLATFORMS=cpu \\
         python -m tests.torch_aligned_render OUT.npz [SCENE ...]
 
+A SCENE written ``scan:<scene>`` renders the scan-renderer cases of
+tests/test_torch_scan_render.py (``SCAN_CASES``) instead of the queue's.
+
 Three things make the JAX package's CPU render differ from the port's in
 the last ulp, and each of them alone flips a few shadow and bounce
 decisions (a ray grazing its own surface just past t_min), so a few
@@ -16,7 +19,9 @@ percent of the pixels of a 16x16 render move by one path's share:
   process of its own.
 - On the CPU, the JAX package's ``fused_trace_planes`` runs its
   Moller-Trumbore reference, not the Woop-plane walk of its kernel. Here
-  it runs the kernel in interpret mode (``force_kernel=True``).
+  it runs the kernel in interpret mode (``force_kernel=True``). (The scan
+  renderer's "bvh_pallas" and "pallas" backends run their kernels in
+  interpret mode on the CPU anyway.)
 - XLA's sqrt, rsqrt, sin, cos, arcsin, arccos and pow differ from
   PyTorch's in the last ulp. Here the port computes them with XLA's.
 
@@ -43,11 +48,13 @@ from tinyraytracing_tpu.config import RenderConfig as JConfig  # noqa: E402
 from tinyraytracing_tpu.integrator.fused_queue import render_fused_queue_jit  # noqa: E402
 from tinyraytracing_tpu.models import procedural as jproc  # noqa: E402
 from tinyraytracing_tpu.ops.bvh import attach_bvh  # noqa: E402
+from tinyraytracing_tpu.render import render as jax_scan_render  # noqa: E402
 from tinyraytracing_tpu_torch.config import RenderConfig  # noqa: E402
 from tinyraytracing_tpu_torch.integrator.fused_queue import render_fused_queue  # noqa: E402
 from tinyraytracing_tpu_torch.models.camera import Camera  # noqa: E402
 from tinyraytracing_tpu_torch.ops import vec  # noqa: E402
 from tinyraytracing_tpu_torch.ops.rng import master_key_data  # noqa: E402
+from tinyraytracing_tpu_torch.render import render as port_scan_render  # noqa: E402
 from tests.torch_port_util import port_scene  # noqa: E402
 
 SIZE, SPP, LANES, SEED = 16, 2, 512, 3
@@ -65,6 +72,23 @@ CONFIGS = {
 CASES = ([(n, c) for n in ("cornell", "grid600")
           for c in ("default", "compact", "morton", "tmin")]
          + [("grid600", "row"), ("cornell", "octant")])
+
+# the scan renderer: every intersector backend on both scenes (the
+# "*pallas" ones as the JAX kernels in interpret mode and the port's plain
+# versions), and ray chunks smaller than the image: 2 chunks, and 3 with
+# the last one padded by the first rays
+SCAN_CONFIGS = {
+    "bvh": dict(intersector="bvh"),
+    "mxu": dict(intersector="mxu"),
+    "bvh_pallas": dict(intersector="bvh_pallas"),
+    "pallas": dict(intersector="pallas"),
+    "chunk128": dict(intersector="bvh", ray_chunk=128),
+    "chunk96": dict(intersector="bvh", ray_chunk=96, light_sampler="uniform",
+                    specular_weight="ks", shadow_test="tmin"),
+}
+SCAN_CASES = ([(n, c) for n in ("cornell", "grid600")
+               for c in ("bvh", "mxu", "bvh_pallas", "pallas")]
+              + [("cornell", "chunk128"), ("grid600", "chunk96")])
 
 
 def scenes(name):
@@ -103,11 +127,57 @@ def align():
     vec.normalize = lambda a: vec.scale(a, rsqrt(vec.length2(a)))
 
 
+def scan_images(name, images):
+    """The scan-renderer cases of scene ``name``, both packages."""
+    js, jcam, ts, tcam = scenes(name)
+    for case, cfg in SCAN_CASES:
+        if case != name:
+            continue
+        kw = SCAN_CONFIGS[cfg]
+        images[f"scan-{name}-{cfg}-jax"] = np.asarray(jax_scan_render(
+            js, jcam, jax.random.PRNGKey(SEED), JConfig(**kw), SPP))
+        images[f"scan-{name}-{cfg}-port"] = port_scan_render(
+            ts, tcam, master_key_data(SEED), RenderConfig(**kw), SPP).numpy()
+
+
+def run_processes(out_dir, names):
+    """Render ``names`` (one process each, side by side, with FMA
+    contraction off) into ``out_dir``; returns all their images."""
+    import os
+    import subprocess
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, JAX_PLATFORMS="cpu", XLA_FLAGS=(
+        os.environ.get("XLA_FLAGS", "") + " --xla_cpu_max_isa=AVX"))
+    outs = [os.path.join(out_dir, f"{n.replace(':', '_')}.npz") for n in names]
+    procs = [subprocess.Popen([sys.executable, "-m", "tests.torch_aligned_render",
+                               out, n], cwd=root, env=env)
+             for out, n in zip(outs, names)]
+    try:
+        rcs = [p.wait(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    assert rcs == [0] * len(names), rcs
+    images = {}
+    for out in outs:
+        with np.load(out) as f:
+            images.update(f)
+    return images
+
+
 def main(out, names):
-    """Render the cases of the scenes ``names`` (default: all) into OUT."""
+    """Render the cases of the scenes ``names`` (default: all queue cases)
+    into OUT."""
     align()
     images = {}
-    for name in names or dict.fromkeys(n for n, _ in CASES):
+    queue = [n for n in names if not n.startswith("scan:")]
+    for name in names:
+        if name.startswith("scan:"):
+            scan_images(name[5:], images)
+    if not names:
+        queue = list(dict.fromkeys(n for n, _ in CASES))
+    for name in queue:
         js, jcam, ts, tcam = scenes(name)
         for case, cfg in CASES:
             if case != name:

@@ -92,6 +92,11 @@ def scene_pair(name):
         if name == "cornell":
             js, _ = jproc.cornell_box(32, 32)
             js = attach_bvh(js, JConfig(leaf_size=8))
+        elif name in ("grid600", "grid2000", "grid2000_32"):
+            n = 600 if name == "grid600" else 2000
+            js, _ = jproc.quad_grid(n, width=16, height=16)       # leaf 8
+            if name == "grid2000_32":
+                js = attach_bvh(js, JConfig(leaf_size=32))
         elif name in ("grid", "grid32"):
             js, _ = jproc.quad_grid(6000, width=16, height=16)   # leaf 8
             if name == "grid32":   # the JAX CLI's leaf width for big scenes
@@ -107,6 +112,44 @@ def scene_pair(name):
                                 bvh_host=build_bvh_host(mesh.v, 8))
         _SCENES[name] = (js, port_scene(js))
     return _SCENES[name]
+
+
+def scan_rays(tscene, n_side=32, seed=0):
+    """The scan renderer's three kinds of rays on the port scene, as float32
+    numpy (org, dir) of 3 * n_side^2 rows: jittered camera rays of the
+    procedural scenes' camera; one cosine-diffuse bounce ray from each
+    camera hit (a miss parks at 1e30 with direction (0, 0, 1), as the scan
+    renderer parks dead rays); one shadow ray from each camera hit toward a
+    random point of light 0 (a miss parks at 1e30 with the direction the
+    renderer's NEE then computes). Hits come from the port's plain "bvh"
+    walk; the random numbers from numpy."""
+    from tinyraytracing_tpu_torch.models.camera import Camera, generate_rays
+    from tinyraytracing_tpu_torch.ops.intersect import intersect
+    from tinyraytracing_tpu_torch.ops.linalg import dot, normalize
+    from tinyraytracing_tpu_torch.ops.sampling import sample_lobe
+
+    rng = np.random.default_rng(seed)
+    cam = Camera.create((278.0, 273.0, -800.0), (278.0, 273.0, -799.0),
+                        (0.0, 1.0, 0.0), 39.3077, n_side, n_side)
+    o, d = generate_rays(cam, (0, seed), "cpu")
+    n = o.shape[0]
+    hit = intersect(tscene, o, d, RenderConfig(intersector="bvh"))
+    ok = hit.hit[:, None]
+    point = torch.where(ok, o + hit.t[:, None] * d, torch.tensor(1.0e30))
+    gn = tscene.gn[hit.idx]
+    nrm = torch.where((dot(gn, d) > 0.0)[:, None], -gn, gn)
+    u = torch.from_numpy(rng.uniform(size=(2, n)).astype(np.float32))
+    bd = sample_lobe(nrm, u[0], u[1], torch.ones(n, dtype=torch.bool),
+                     torch.ones(n))
+    bd = torch.where(ok, bd, torch.tensor([0.0, 0.0, 1.0]))
+    b = rng.uniform(size=(n, 3)).astype(np.float32)
+    b = torch.from_numpy(b / b.sum(1, keepdims=True))
+    lp = (b[:, :1] * tscene.lt_v0[0, 0] + b[:, 1:2] * tscene.lt_v1[0, 0]
+          + b[:, 2:] * tscene.lt_v2[0, 0])
+    sd = normalize(lp - point)
+    org = torch.cat([o, point, point])
+    dirs = torch.cat([d, bd, sd])
+    return org.numpy().astype(np.float32), dirs.numpy().astype(np.float32)
 
 
 def max_leaf_slots(tscene):

@@ -1,10 +1,13 @@
 """Command line with the flags of ``tinyraytracing_tpu/cli.py``.
 
-Renders on the GPU when one is present (CUDA kernels), else on the CPU
-(their plain PyTorch versions). Example:
+Renders on the CUDA device (the hand-written kernels) unless ``--device
+cpu`` asks for the CPU (their plain PyTorch versions); without a CUDA
+device and without ``--device cpu`` it exits with an error. Examples:
 
     python -m tinyraytracing_tpu_torch.cli --scene grid:100000 \\
         --width 1024 --height 1024 --spp 4 --out /tmp/x.png
+    python -m tinyraytracing_tpu_torch.cli --scene cornell --renderer scan \\
+        --width 64 --height 64 --spp 2 --device cpu --out /tmp/c.png
 """
 
 from __future__ import annotations
@@ -35,13 +38,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--renderer", default="auto",
                    choices=["auto", "persistent", "queue", "scan"],
                    help="auto = queue for >= 512 triangles, else persistent "
-                        "(only queue is ported so far)")
+                        "(not ported yet); scan = the fixed-depth wavefront "
+                        "with any --intersector")
     p.add_argument("--lanes", type=int, default=262144,
                    help="wavefront width for the fused renderers")
     p.add_argument("--leaf-size", default="auto",
                    help="BVH leaf width: an int, or 'auto' (8: on an H100 "
                         "both trace kernels ran ~2x faster at 8 than at "
                         "the JAX package's 32 for >=10K triangles)")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="where to render (default cuda; cpu runs the "
+                        "kernels' plain PyTorch versions)")
     p.add_argument("--intersector", default="auto", choices=["auto", "mxu", "brute", "bvh", "pallas", "bvh_pallas"])
     p.add_argument("--light-sampler", default="ref", choices=["ref", "uniform"])
     p.add_argument("--specular-weight", default="ref", choices=["ref", "ks"])
@@ -70,7 +77,10 @@ def main(argv=None) -> int:
     if args.scene is None and not (args.basedir and args.xml and args.obj and args.mtl):
         raise SystemExit("either --scene or all of --basedir/--xml/--obj/--mtl required")
     rel = lambda p: p if os.path.isabs(p) else os.path.join(args.basedir, p)
-    device = "cuda" if torch.cuda.is_available() else "cpu"
+    device = args.device
+    if device == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("no CUDA device found; pass --device cpu to render "
+                         "on the CPU")
 
     config = RenderConfig(
         spp=args.spp,
@@ -81,6 +91,10 @@ def main(argv=None) -> int:
         specular_weight=args.specular_weight,
         shadow_test=args.shadow_test,
     )
+    # the fused renderers need the packed-leaf BVH; build it at load unless
+    # the scan path was asked for with a non-BVH intersector (the JAX CLI's
+    # rule, so --renderer scan --intersector bvh_pallas on a scene built
+    # without a BVH raises, as there)
     with_bvh = (
         args.renderer in ("auto", "persistent", "queue")
         or config.intersector in ("auto", "bvh")
@@ -91,17 +105,17 @@ def main(argv=None) -> int:
         )
 
         if args.scene == "cornell":
-            scene, cam = cornell_box()
+            scene, cam = cornell_box(device=device)
         elif args.scene == "cornell-specular":
-            scene, cam = cornell_box_specular()
+            scene, cam = cornell_box_specular(device=device)
         elif args.scene.startswith("grid:"):
-            scene, cam = quad_grid(int(args.scene.split(":")[1]))
+            scene, cam = quad_grid(int(args.scene.split(":")[1]), device=device)
         else:
             raise SystemExit(f"unknown --scene {args.scene}")
     else:
         scene, cam = load_scene(
             rel(args.xml), rel(args.obj), rel(args.mtl), args.basedir,
-            with_bvh=False,
+            with_bvh=False, device=device,
         )
     if with_bvh:
         from tinyraytracing_tpu_torch.ops.bvh import attach_bvh
@@ -112,7 +126,6 @@ def main(argv=None) -> int:
         if scene.bvh is None or (scene.bvh.leaf_size, scene.bvh.aabb_pad) != (
                 leaf, config.aabb_pad):
             scene = attach_bvh(scene, config)
-    scene = scene.to(device)
     if args.width or args.height:
         cam = dataclasses.replace(
             cam, width=args.width or cam.width, height=args.height or cam.height

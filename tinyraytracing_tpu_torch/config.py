@@ -2,18 +2,21 @@
 ``tinyraytracing_tpu/config.py`` (whose docstrings give each field's
 rationale and the reference file:line it mirrors).
 
-Every field is accepted, so a config carries across unchanged. What the
-port does with those it does not act on:
+Every field is accepted, so a config carries across unchanged. Every
+``intersector`` value is served: the scan renderer dispatches on it
+(``ops/intersect.py``; the queue renderer has its own trace kernels and
+ignores it). The scan path's ``ray_chunk`` (part of its sample stream),
+``tri_chunk`` (the brute and mxu chunking) and ``bvh_early_out`` (the
+"bvh" walk's pruning) act as in the JAX package. What the port does with
+the fields it does not act on:
 
 - no effect on a forward render, by design: the TPU packet-kernel layout
   knobs ``ray_tile``, ``trace_super_rays`` and ``bvh_walk`` (the per-ray
-  walk's results do not depend on them), the scan renderer's chunking
-  ``tri_chunk``, ``ray_chunk`` and ``bvh_early_out``, and
-  ``detach_sampling``, which only steers gradients;
+  walks' results do not depend on them), and ``detach_sampling``, which
+  only steers gradients;
 - not ported, so a render raises ``NotImplementedError`` naming the
-  ROADMAP.md item (``check_ported``): ``intersector`` other than
-  "auto"/"bvh", ``accum_dtype`` other than "float32", and
-  ``walk_order="near"``.
+  ROADMAP.md item (``check_ported``): ``accum_dtype`` other than
+  "float32", and ``walk_order="near"``.
 """
 
 from __future__ import annotations
@@ -75,9 +78,6 @@ DEFAULT_CONFIG = RenderConfig()
 
 # field -> (values the port serves, what the other values need)
 _UNPORTED = {
-    "intersector": (("auto", "bvh"),
-                    "the oracle intersectors and their kernels (ROADMAP.md, "
-                    "modules to port, item 6; TPU kernels to port, items 4-5)"),
     "accum_dtype": (("float32",),
                     "reduced-precision accumulation (ROADMAP.md, modules to "
                     "port, item 5: diff/)"),

@@ -20,7 +20,9 @@
 // and pushing hits in reverse child order so pops follow the binary
 // preorder — the packet walk's results, lane for lane.
 //
-// The slot tests copy the JAX arithmetic operation for operation; this file
+// The slot tests copy the JAX arithmetic operation for operation (the slot
+// test and repl rule shared with the other walks live in slot_test.cuh); this
+// file
 // must be compiled with --fmad=false, since FMA contraction moves t in the
 // last ulp and flips decisions inside the tie_eps band and the kill.
 //
@@ -37,6 +39,8 @@
 // and warp-coherent ray ordering are later work.
 
 #include <cuda_runtime.h>
+
+#include "slot_test.cuh"
 
 #define TRT_MAX_STACK 192
 #define TRT_SLOT 32
@@ -115,32 +119,17 @@ __global__ void __launch_bounds__(128) trace_kernel(TraceParams p) {
     const int leaf = dec >> 6;
     const int cnt = dec & 63;
     const float* __restrict__ blk = ps + (long long)leaf * 128;
-#define G(a) __ldg(blk + ((a) / 4) * cols + ((a) % 4) * TRT_SLOT + s)
 #define H(a) __ldg(blk + (4 + (a) / 4) * cols + ((a) % 4) * TRT_SLOT + s)
     for (int s = 0; s < cnt; ++s) {
-      const float ax = G(0), ay = G(1), az = G(2), bx = G(3);
-      const float by = G(4), bz = G(5), cx = G(6), cy = G(7);
-      const float cz = G(8), ou = G(9), ov = G(10), ow = G(11);
-      const float gx = G(12), gy = G(13), gz = G(14), em = G(15);
-
-      const float ldw = dx * cx + dy * cy + dz * cz;
-      const float low = ox * cx + oy * cy + oz * cz + ow;
-      const float inv = (ldw == 0.f ? 0.f : 1.f) / (ldw == 0.f ? 1.f : ldw);
-      const float t = -low * inv;
-      const float u = (ox * ax + oy * ay + oz * az + ou) +
-                      t * (dx * ax + dy * ay + dz * az);
-      const float v = (ox * bx + oy * by + oz * bz + ov) +
-                      t * (dx * bx + dy * by + dz * bz);
-      const float ndd = dx * gx + dy * gy + dz * gz;
-      const bool ok = (fabsf(ndd) >= p.graze) && (ldw != 0.f) &&
-                      (t >= p.t_min) && (u >= 0.f) && (v >= 0.f) &&
-                      (u + v <= 1.f);
-      const float tm = ok ? t : INF;
-      const float tme = tm * p.eps1;
-      const bool in_band = (tm <= bt * p.eps1) && (bt <= tme) && (tm < INF);
-      const bool repl =
-          (!in_band && (tm < bt)) || (in_band && (em > 0.5f) && (bem < 0.5f));
-      const bool may_kill = tga && (tme < bt);
+      const auto g = [blk, cols, s](int a) {
+        return __ldg(blk + (a / 4) * cols + (a % 4) * TRT_SLOT + s);
+      };
+      float u, v;
+      const float tm = woop_slot_test(g, ox, oy, oz, dx, dy, dz, p.t_min,
+                                      p.graze, u, v);
+      const float em = g(15);
+      const bool repl = slot_replaces(tm, em, bt, bem, p.eps1);
+      const bool may_kill = tga && (tm * p.eps1 < bt);
       if (!repl && !may_kill) continue;                  // no carry change
       const float mt_slot = H(15);
       const bool wrong = fabsf(mt_slot - tg) > 0.5f;
@@ -182,7 +171,6 @@ __global__ void __launch_bounds__(128) trace_kernel(TraceParams p) {
         break;
       }
     }
-#undef G
 #undef H
   }
 

@@ -60,3 +60,31 @@ def camera_basis(cam: Camera):
     vertical = viewport_h * v
     llc = cam.eye - horizontal / 2.0 - vertical / 2.0 - w
     return cam.eye, horizontal, vertical, llc
+
+
+def generate_rays(cam: Camera, key, device="cuda"):
+    """One jittered camera ray per pixel, row-major (top row first), on
+    ``device`` (the card unless the caller asks for the CPU; ``key``:
+    (k0, k1) key words, as ``ops.rng``). Returns
+    (origins (N, 3), directions (N, 3)) with N = W*H; the jitter is
+    ``uniform(key, (2, N)) - 0.5`` and
+    ``x = j/(W-1) + jit[0]/W``, ``y = (H-i)/(H-1) + jit[1]/H``
+    (reference main.cpp:88-93)."""
+    from tinyraytracing_tpu_torch.ops.linalg import normalize
+    from tinyraytracing_tpu_torch.ops.rng import uniform
+
+    W, H = cam.width, cam.height
+    eye, horizontal, vertical, llc = (
+        v.to(device) for v in camera_basis(cam))
+    # divisors as float32 tensors: CUDA turns a division by a Python scalar
+    # into a multiplication by its reciprocal
+    c = lambda x: torch.tensor(x, dtype=torch.float32, device=device)
+    j = torch.arange(W, dtype=torch.float32, device=device).repeat(H)
+    i = torch.arange(H, dtype=torch.float32, device=device).repeat_interleave(W)
+    jit = uniform(key, (2, W * H), device) - 0.5
+    x = j / c(W - 1.0) + jit[0] / c(float(W))
+    y = (H - i) / c(H - 1.0) + jit[1] / c(float(H))
+    d = (llc[None, :] + x[:, None] * horizontal[None, :]
+         + y[:, None] * vertical[None, :] - eye[None, :])
+    d = normalize(d)
+    return eye.expand(d.shape), d

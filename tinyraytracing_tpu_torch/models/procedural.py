@@ -16,6 +16,9 @@ Two jobs (BASELINE.json configs 1/3/5):
 2. ``triangle_soup(n)`` / ``quad_grid(n)`` — parameterized large meshes
    (100K / 1M triangles) for BVH-scaling benchmarks; the reference assets
    top out at 31,407 triangles (staircase).
+
+The scenes are assembled on the host (numpy) and moved to ``device`` at
+the end: the card by default, the CPU only when the caller asks for it.
 """
 
 from __future__ import annotations
@@ -93,7 +96,7 @@ def cornell_box(
     width: int = 1024,
     height: int = 1024,
     extra_materials: dict | None = None,
-    device="cpu",
+    device="cuda",
 ) -> tuple[Scene, Camera]:
     """The cornell-box scene with the reference's own camera/light config
     (cornell-box.xml: eye (278,273,-800), fovy 39.3077, light 'Light'
@@ -113,7 +116,7 @@ def cornell_box(
     return scene, cam
 
 
-def cornell_box_specular(width: int = 512, height: int = 512, device="cpu"):
+def cornell_box_specular(width: int = 512, height: int = 512, device="cuda"):
     """BASELINE.json config 2: cornell box with a specular tall block and a
     glass short block (Fresnel/refraction path)."""
     quads = []
@@ -139,7 +142,7 @@ def cornell_box_specular(width: int = 512, height: int = 512, device="cpu"):
 
 
 def quad_grid(n_triangles: int, width: int = 512, height: int = 512,
-              seed: int = 0, device="cpu") -> tuple[Scene, Camera]:
+              seed: int = 0, device="cuda") -> tuple[Scene, Camera]:
     """A displaced checkerboard of small quads filling the cornell floor —
     n_triangles of real occluding geometry for BVH scaling runs
     (BASELINE.json configs 3 and 5: 100K / 1M tris)."""

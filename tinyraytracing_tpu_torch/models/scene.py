@@ -11,6 +11,7 @@ tests make both implementations trace the same scene.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 
 import numpy as np
@@ -158,6 +159,16 @@ class Scene:
     def device(self) -> torch.device:
         return self.v0.device
 
+    @functools.cached_property
+    def slot_payload(self) -> tuple[torch.Tensor, int]:
+        """(P, n_chunks): the triangles packed into 32-slot blocks for the
+        slot kernel (``ops.slot_intersect.pack_triangle_slots``), on the
+        scene's device; packed at first use and kept with the scene."""
+        from tinyraytracing_tpu_torch.ops.slot_intersect import pack_triangle_slots
+
+        return pack_triangle_slots(self.woop_a, self.woop_b, self.gn,
+                                   self.tri_emissive)
+
     def to(self, device) -> "Scene":
         return _to(self, device)
 
@@ -171,8 +182,9 @@ PACKED_ARRAYS = ("P", "tid", "node_box", "node_meta", "PS", "WN")
 PACKED_STATICS = ("n_nodes", "n_leaves", "leaf_size", "n_wide", "wide_depth")
 
 
-def scene_from_arrays(d: dict, statics: dict, device="cpu") -> Scene:
-    """Build a Scene on ``device`` from numpy arrays.
+def scene_from_arrays(d: dict, statics: dict, device="cuda") -> Scene:
+    """Build a Scene on ``device`` (the card unless the caller asks for the
+    CPU) from numpy arrays.
 
     ``d`` maps every Scene array field name to its array; BVH arrays are
     keyed ``"bvh.<field>"`` and packed-leaf arrays ``"bvh.packed.<field>"``
@@ -398,11 +410,12 @@ def load_scene(
     with_bvh: bool = False,
     leaf_size: int = 8,
     aabb_pad: float = 1e-3,
-    device="cpu",
+    device="cuda",
 ) -> tuple[Scene, Camera]:
     """Load a scene the way the reference program does (main.cpp:66-69),
-    returning the Scene and the Camera from the XML. With ``with_bvh`` the
-    SAH BVH is built on the host and attached."""
+    returning the Scene (on ``device``, the card unless the caller asks
+    for the CPU) and the Camera from the XML. With ``with_bvh`` the SAH BVH
+    is built on the host and attached."""
     if basedir is None:
         basedir = os.path.dirname(os.path.abspath(xml_path))
     config = parse_scene_xml(xml_path)

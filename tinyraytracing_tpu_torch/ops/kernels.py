@@ -2,13 +2,14 @@
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface, at first use, into ``_build/`` next to
-the package (git-ignored), under a name keyed on the source's content and
-the flags — so an edited source rebuilds and an unchanged one loads. The
+the package (git-ignored), under a name keyed on the source's content, the
+shared headers (``csrc/*.cuh``) and the flags — so an edited source or
+header rebuilds and an unchanged one loads. The
 libraries are loaded with ``ctypes``; nothing here runs at import time.
 
-``--fmad=false`` is required: the trace kernels reproduce the JAX
-package's float arithmetic operation for operation, and FMA contraction
-would move hit distances in the last ulp.
+``--fmad=false`` is required: every kernel reproduces the JAX package's
+float arithmetic operation for operation, and FMA contraction would move
+hit distances in the last ulp.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
-SOURCES = ("trace.cu",)
+SOURCES = ("trace.cu", "bvh_intersect.cu", "slot_intersect.cu")
 
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -45,6 +46,8 @@ def _nvcc() -> str:
 
 def _lib_path(source: str) -> Path:
     h = hashlib.sha256((CSRC / source).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):     # the shared headers
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{Path(source).stem}_{h.hexdigest()[:16]}.so"
 
@@ -55,7 +58,8 @@ def _build_one(source: str) -> tuple[Path, str]:
         return out, "cached"
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+           str(CSRC / source)]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed on {source}:\n{res.stdout}{res.stderr}")

@@ -9,6 +9,13 @@ Stream layout (as in the JAX package):
 - path key  = TF(master_key, (path_id, PATH_TAG))
 - draw pair = TF(path_key, (bounce, draw_pair_index))
   giving 2 uniforms per block; uniform = (bits >> 8) * 2^-24 in [0, 1).
+
+``split``, ``fold_in`` and ``uniform`` reproduce ``jax.random``'s bits for
+a raw (2,) threefry key under ``jax_threefry_partitionable`` (the default
+since JAX 0.5): ``fold_in(k, d) = TF(k, (0, d))``, ``split(k)[j] =
+TF(k, (0, j))``, and flat element i of ``uniform(k, shape)`` is
+``(y0 ^ y1) >> 9`` scaled by 2^-23, with (y0, y1) = TF(k, (0, i)). Keys
+are pairs of Python ints, derived on the host: they cost no device launch.
 """
 
 from __future__ import annotations
@@ -56,6 +63,27 @@ def master_key_data(seed: int) -> tuple[int, int]:
     if not 0 <= seed <= _M:
         raise ValueError(f"seed must be in [0, 2^32), got {seed}")
     return (0, seed)
+
+
+def fold_in(key, data: int) -> tuple[int, int]:
+    """``jax.random.fold_in`` on a (k0, k1) key of Python ints."""
+    return threefry2x32(int(key[0]), int(key[1]), 0, int(data) & _M)
+
+
+def split(key, num: int = 2) -> list[tuple[int, int]]:
+    """``jax.random.split``: ``num`` keys, key j = ``fold_in(key, j)``."""
+    return [fold_in(key, j) for j in range(num)]
+
+
+def uniform(key, shape, device=None) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32)`` in [0, 1) on ``device``."""
+    n = 1
+    for s in shape:
+        n *= int(s)
+    i = torch.arange(n, dtype=torch.int64, device=device)
+    y0, y1 = threefry2x32(int(key[0]), int(key[1]), 0, i)
+    u = ((y0 ^ y1) >> 9).to(torch.float32) * (1.0 / (1 << 23))
+    return u.reshape(tuple(shape))
 
 
 def path_keys(key_data, path_id):

@@ -28,9 +28,9 @@ import ctypes
 import torch
 
 from tinyraytracing_tpu_torch.config import RenderConfig, check_ported
+from tinyraytracing_tpu_torch.ops.slot_test import SLOT, slot_replaces, woop_slot_test
 
 _INF = 3.0e38
-SLOT = 32          # triangle slots per leaf block (PackedLeaves layout)
 N_OUT = 9          # t, pn xyz, tc uv, mtl, em, slot
 
 # kernel launches per wrapper; each wrapper adds one where it launches
@@ -53,16 +53,22 @@ def stack_size(pk) -> int:
 # ---------------------------------------------------------------------------
 
 def trace_plain(pk, rays: torch.Tensor, config: RenderConfig, *,
-                attrs: bool = True, occl: bool = False) -> torch.Tensor:
+                attrs: bool = True, occl: bool = False,
+                stats: dict | None = None) -> torch.Tensor:
     """Reference walk on any device. ``rays`` is (8, R) float32 (o xyz,
     d xyz, t_bound, target_mtl); returns (9, R) closest-hit planes or
-    (2, R) occlusion planes (bt, seen), exactly what the kernel writes."""
+    (2, R) occlusion planes (bt, seen), exactly what the kernel writes.
+    ``stats`` (if given) gains "node_visits" (child slab tests),
+    "slot_tests" (occupied slots of the leaves popped), as the kernel runs
+    them up to its early exit after a kill, and "scene_bytes" (the WN and
+    PS floats the kernel reads, each counted once: the rows it pops, the
+    P attributes of the slots it tests, a slot's material only where it
+    may replace or kill, its shading attributes only where it replaces)."""
     f32 = torch.float32
     dev = rays.device
     R = rays.shape[1]
     c = lambda x: torch.tensor(x, dtype=f32, device=dev)
     INF, eps1 = c(_INF), c(1.0 + config.tie_eps)
-    t_min, graze = c(config.t_min), c(config.n_dot_d_min)
     zero, one = c(0.0), c(1.0)
 
     ox, oy, oz, dx, dy, dz, tb, tg = rays.unbind(0)
@@ -89,6 +95,15 @@ def trace_plain(pk, rays: torch.Tensor, config: RenderConfig, *,
     sp = torch.ones(R, dtype=torch.int64, device=dev)
     WN, PS = pk.WN, pk.PS
     lane_off = torch.arange(4, device=dev) * SLOT
+    visits = torch.zeros((), dtype=torch.int64, device=dev)
+    slots = torch.zeros((), dtype=torch.int64, device=dev)
+    # what the kernel reads, for the bound: wide rows popped, and per slot
+    # its P attributes, its material and its shading attributes
+    if stats is not None:
+        flags = lambda n: torch.zeros(n, dtype=torch.bool, device=dev)
+        n_slots = PS.shape[1] // 4
+        seen = {"rows": flags(WN.shape[0]), "P": flags(n_slots),
+                "mtl": flags(n_slots), "shading": flags(n_slots)}
 
     while True:
         act = torch.nonzero(sp > 0).squeeze(1)
@@ -101,6 +116,8 @@ def trace_plain(pk, rays: torch.Tensor, config: RenderConfig, *,
         # --- interior pops: slab-test the 8 children, push in reverse order
         ia = act[~is_leaf]
         if ia.numel():
+            if stats is not None:
+                seen["rows"][m[~is_leaf][state[0, ia] >= 0.0]] = True
             row = WN[m[~is_leaf]]                      # (n, 128)
             bte = state[0, ia] * eps1
             ix, iy, iz = invx[ia], invy[ia], invz[ia]
@@ -109,6 +126,7 @@ def trace_plain(pk, rays: torch.Tensor, config: RenderConfig, *,
             for ch in range(7, -1, -1):
                 b = row[:, ch * 8: ch * 8 + 8]
                 meta = b[:, 6]
+                visits += ((meta != -1.0) & (state[0, ia] >= 0.0)).sum()
                 t_ax = b[:, 0] * ix - ax_
                 t_bx = b[:, 3] * ix - ax_
                 t_ay = b[:, 1] * iy - ay_
@@ -142,36 +160,28 @@ def trace_plain(pk, rays: torch.Tensor, config: RenderConfig, *,
             ex, ey, ez = dx[la], dy[la], dz[la]
             ltg, ltga = tg[la], tga[la]
             for s in range(int(cnt.max())):
+                # a lane killed earlier (bt = -1) has left the kernel's walk
+                live = (cnt > s) & (st[0] >= 0.0)
+                slots += live.sum()
                 cols = (leaf * 128 + s)[:, None] + lane_off     # (n, 4)
                 blk = PS[:, cols]                               # (8, n, 4)
                 g = lambda a: blk[a // 4, :, a % 4]
                 h = lambda a: blk[4 + a // 4, :, a % 4]
-                ax, ay, az, bx = g(0), g(1), g(2), g(3)
-                by, bz, cx, cy = g(4), g(5), g(6), g(7)
-                cz, ou, ov, ow = g(8), g(9), g(10), g(11)
-                gx, gy, gz, em = g(12), g(13), g(14), g(15)
-
-                ldw = ex * cx + ey * cy + ez * cz
-                low = lx * cx + ly * cy + lz * cz + ow
-                z = ldw == 0.0
-                inv = torch.where(z, zero, one) / torch.where(z, one, ldw)
-                t = -low * inv
-                u = (lx * ax + ly * ay + lz * az + ou) + t * (
-                    ex * ax + ey * ay + ez * az)
-                v = (lx * bx + ly * by + lz * bz + ov) + t * (
-                    ex * bx + ey * by + ez * bz)
-                ndd = ex * gx + ey * gy + ez * gz
-                ok = ((ndd.abs() >= graze) & (ldw != 0.0) & (t >= t_min)
-                      & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
-                      & (cnt > s))
+                tm, u, v = woop_slot_test(g, (lx, ly, lz), (ex, ey, ez), config)
+                tm = torch.where(cnt > s, tm, INF)
+                em = g(15)
                 bt, bem = st[0], st[EM]
-                tm = torch.where(ok, t, INF)
-                tme = tm * eps1
-                near = (tm <= bt * eps1) & (bt <= tme) & (tm < INF)
-                repl = (~near & (tm < bt)) | (near & (em > 0.5) & (bem < 0.5))
+                repl = slot_replaces(tm, em, bt, bem, eps1)
+                may_kill = ltga & (tm * eps1 < bt)
                 mt_slot = h(15)
                 wrong = (mt_slot - ltg).abs() > 0.5
-                kill = ltga & (tme < bt) & wrong
+                kill = may_kill & wrong
+                if stats is not None:
+                    slot_id = leaf * SLOT + s
+                    seen["P"][slot_id[live]] = True
+                    seen["mtl"][slot_id[live & (repl | may_kill)]] = True
+                    if attrs and not occl:
+                        seen["shading"][slot_id[live & repl]] = True
                 sel = lambda kv, rv, old: torch.where(
                     kill, kv, torch.where(repl, rv, old))
                 new_bt = sel(-one, tm, bt)
@@ -194,6 +204,16 @@ def trace_plain(pk, rays: torch.Tensor, config: RenderConfig, *,
                 st = torch.stack(rows)
             state[:, la] = st
 
+    if stats is not None:
+        stats["node_visits"] = stats.get("node_visits", 0) + int(visits)
+        stats["slot_tests"] = stats.get("slot_tests", 0) + int(slots)
+        # a row's 8 child metas, plus 6 box floats per occupied child; a
+        # slot's 16 P attributes, its material, its 15 shading attributes
+        occupied = (WN[seen["rows"]][:, 6::8] != -1.0).sum()
+        nbytes = 4 * (8 * int(seen["rows"].sum()) + 6 * int(occupied)
+                      + 16 * int(seen["P"].sum()) + int(seen["mtl"].sum())
+                      + 15 * int(seen["shading"].sum()))
+        stats["scene_bytes"] = stats.get("scene_bytes", 0) + nbytes
     return state[:2] if occl else state
 
 

@@ -1,23 +1,34 @@
-"""Top-level render entry point, the counterpart of
-``tinyraytracing_tpu/render.py::render_image``.
+"""Top-level render entry points, the counterpart of
+``tinyraytracing_tpu/render.py``: the scan renderer (``render_pass``,
+``render``) and ``render_image``.
 
-Only the queue-fed fused wavefront is ported so far; the other renderers
-and checkpointed renders raise ``NotImplementedError`` naming their
-ROADMAP.md item instead of silently running something else.
+The scan renderer runs ``spp`` passes; each pass generates one jittered
+camera ray per pixel and traces them in chunks of ``config.ray_chunk``
+through the fixed-depth wavefront (``integrator/wavefront.py``). The
+chunking is part of the sample stream, as in the JAX package: chunk i
+draws with ``fold_in(k_trace, i)``, the last chunk is padded with the
+first rays, and pass s uses ``fold_in(key, s)``.
+
+The queue-fed fused wavefront is ``integrator/fused_queue.py``. The
+persistent renderer and checkpointed renders raise
+``NotImplementedError`` naming their ROADMAP.md item instead of silently
+running something else.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from tinyraytracing_tpu_torch.config import (
     DEFAULT_CONFIG, RenderConfig, check_ported,
 )
 from tinyraytracing_tpu_torch.integrator.fused_queue import render_fused_queue_image
+from tinyraytracing_tpu_torch.integrator.wavefront import trace
 from tinyraytracing_tpu_torch.io.image import write_png
-from tinyraytracing_tpu_torch.models.camera import Camera
+from tinyraytracing_tpu_torch.models.camera import Camera, generate_rays
 from tinyraytracing_tpu_torch.models.scene import Scene
-from tinyraytracing_tpu_torch.ops.rng import master_key_data
+from tinyraytracing_tpu_torch.ops.rng import fold_in, master_key_data, split
 
 # the queue pays a per-iteration scatter-add that dominates on tiny scenes;
 # the JAX package measured the switch point (its benchmarks/renderers_ab.py)
@@ -26,9 +37,41 @@ _QUEUE_MIN_TRIS = 512
 _NOT_PORTED = {
     "persistent": "the persistent renderer (ROADMAP.md, modules to port, "
                   "item 1: integrator/fused.py::render_fused)",
-    "scan": "the scan renderer (ROADMAP.md, modules to port, item 6: "
-            "oracle renderers)",
 }
+
+
+def render_pass(scene: Scene, cam: Camera, key, config: RenderConfig):
+    """One spp pass: (H, W, 3) radiance for one jittered ray per pixel, on
+    the scene's device. ``key``: (k0, k1) key words."""
+    W, H = cam.width, cam.height
+    k_ray, k_trace = split(key)
+    org, d = generate_rays(cam, k_ray, scene.device)
+
+    n = org.shape[0]
+    chunk = min(config.ray_chunk, n)
+    n_chunks = -(-n // chunk)
+    pad = n_chunks * chunk - n
+    if pad:
+        org = torch.cat([org, org[:pad]])
+        d = torch.cat([d, d[:pad]])
+    rad = [trace(scene, org[i * chunk:(i + 1) * chunk], d[i * chunk:(i + 1) * chunk],
+                 fold_in(k_trace, i), config)
+           for i in range(n_chunks)]
+    return torch.cat(rad)[:n].reshape(H, W, 3)
+
+
+def render(scene: Scene, cam: Camera, key, config: RenderConfig = DEFAULT_CONFIG,
+           spp: int | None = None):
+    """Render the mean image over ``spp`` passes. Returns (H, W, 3) linear
+    float32 on the scene's device. ``key``: (k0, k1) key words
+    (``ops.rng.master_key_data(seed)`` is ``jax.random.PRNGKey(seed)``)."""
+    check_ported(config)
+    spp = spp or config.spp
+    acc = torch.zeros((cam.height, cam.width, 3), dtype=torch.float32,
+                      device=scene.device)
+    for s in range(spp):
+        acc = acc + render_pass(scene, cam, fold_in(key, s), config)
+    return acc / torch.tensor(float(spp), dtype=torch.float32, device=acc.device)
 
 
 def pick_renderer(scene: Scene) -> str:
@@ -51,7 +94,11 @@ def render_image(
 ) -> np.ndarray:
     """Render on the scene's device, pull to host, optionally write a PNG.
     Returns the linear (H, W, 3) numpy image. The seed gives the same
-    sample streams as the JAX package's ``jax.random.PRNGKey(seed)``."""
+    sample streams as the JAX package's ``jax.random.PRNGKey(seed)``.
+
+    ``renderer``: "auto" (by scene size), "queue" (queue-fed fused
+    wavefront), "scan" (fixed-depth wavefront, any ``config.intersector``)
+    or "persistent" (not ported yet)."""
     check_ported(config)
     if checkpoint_path is not None or resume:
         raise NotImplementedError(
@@ -62,14 +109,18 @@ def render_image(
         renderer = pick_renderer(scene)
     if renderer in _NOT_PORTED:
         raise NotImplementedError(f"{_NOT_PORTED[renderer]} is not ported yet")
-    if renderer != "queue":
-        raise ValueError(f"unknown renderer {renderer!r}")
-    if scene.bvh is None:
-        from tinyraytracing_tpu_torch.ops.bvh import attach_bvh
+    key = master_key_data(seed)
+    if renderer == "scan":
+        img = render(scene, cam, key, config, spp_val)
+    elif renderer == "queue":
+        if scene.bvh is None:
+            from tinyraytracing_tpu_torch.ops.bvh import attach_bvh
 
-        scene = attach_bvh(scene, config)
-    img = render_fused_queue_image(scene, cam, master_key_data(seed), config,
-                                   spp_val, lanes).cpu().numpy()
+            scene = attach_bvh(scene, config)
+        img = render_fused_queue_image(scene, cam, key, config, spp_val, lanes)
+    else:
+        raise ValueError(f"unknown renderer {renderer!r}")
+    img = img.cpu().numpy()
     if out_path:
         write_png(out_path, img)
     return img
