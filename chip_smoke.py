@@ -1,9 +1,13 @@
 """GPU smoke test of tinyraytracing_tpu_torch: builds the hand-written CUDA
-kernels, holds each against its plain PyTorch version on the card, renders
-through the CLI with the queue renderer (the 100K-triangle scene) and with
-the scan renderer (the 100K-triangle scene through the packet-BVH kernel,
-cornell through the slot kernel), and renders small scenes on the card and
-on the CPU to compare. Run from the repository root:
+kernels, holds each against its plain PyTorch version on the card (the
+trace kernels in both walk orders), renders through the CLI with the queue
+renderer (the 100K-triangle scene), with the scan renderer (the
+100K-triangle scene through the packet-BVH kernel, cornell through the
+slot kernel) and with the persistent renderer (cornell), renders the
+100K-triangle scene under the near-first walk through ``render_image``,
+renders small scenes on the card and on the CPU to compare, and
+interrupts and resumes a checkpointed queue render. Run from the
+repository root:
 
     python3 chip_smoke.py
 
@@ -28,11 +32,15 @@ A_TOL = 1e-4                     # ... and for shading normal / texcoord
 CSRC = "tinyraytracing_tpu_torch/csrc/"
 SOURCES = {"trace_closest": CSRC + "trace.cu",
            "trace_occlusion": CSRC + "trace.cu",
+           "trace_near": CSRC + "trace.cu",
+           "packet_dirs": CSRC + "trace.cu",
            "bvh_intersect": CSRC + "bvh_intersect.cu",
            "slot_intersect": CSRC + "slot_intersect.cu"}
 REPLACES = {
     "trace_closest": "tinyraytracing_tpu/ops/pallas_trace.py:962",
     "trace_occlusion": "tinyraytracing_tpu/ops/pallas_trace.py:206",
+    "trace_near": "tinyraytracing_tpu/ops/pallas_trace.py:382",
+    "packet_dirs": "tinyraytracing_tpu/ops/pallas_trace.py:376",
     "bvh_intersect": "tinyraytracing_tpu/ops/pallas_bvh.py:188",
     "slot_intersect": "tinyraytracing_tpu/ops/pallas_intersect.py:168",
 }
@@ -194,13 +202,17 @@ def _phase2_scenes():
 
 def _walk_bound(stats, R, in_planes, out_planes):
     """Bound of one walk launch from what its plain version counted on the
-    same rays: the slab and slot tests, and the bytes of the tree and
-    payload it reads (each counted once), plus the ray planes in and out."""
+    same rays: the slab and slot tests (and the near-first walk's keys and
+    19-compare sorts), and the bytes of the tree and payload it reads
+    (each counted once), plus the ray planes in and out."""
     from tinyraytracing_tpu_torch.ops.bvh_intersect import SLAB_FLOPS
     from tinyraytracing_tpu_torch.ops.slot_test import SLOT_FLOPS
+    from tinyraytracing_tpu_torch.ops.trace import KEY_FLOPS, SORT8
 
     ops = (stats.get("node_visits", 0) * SLAB_FLOPS
-           + stats["slot_tests"] * SLOT_FLOPS)
+           + stats["slot_tests"] * SLOT_FLOPS
+           + stats.get("near_keys", 0) * KEY_FLOPS
+           + stats.get("near_sorts", 0) * len(SORT8))
     nbytes = 4 * R * (in_planes + out_planes) + stats["scene_bytes"]
     return _bound(ops, nbytes), nbytes
 
@@ -228,8 +240,10 @@ def phase_kernels(dev):
                  ("shadow closest t_bound+target", shadow, False, False,
                   "trace_closest"),
                  ("shadow occlusion", shadow, False, True, "trace_occlusion")]
+        pre = {}
         for label, r, attrs, occl, kname in cases:
             k = trace.trace_kernel(pk, r, cfg, attrs=attrs, occl=occl)
+            pre[label] = k
             stats = {}
             p = trace.trace_plain(pk, r, cfg, attrs=attrs, occl=occl,
                                   stats=stats)
@@ -250,6 +264,11 @@ def phase_kernels(dev):
                     "closest attrs", "shadow occlusion"):
                 reports[kname].update(ms=kms, plain_ms=pms, bound_ms=bms,
                                       bound_by=by)
+        # kernel 3: the near-first walk on the wide tree (grid100k at leaf
+        # 8 walks wide anyway; cornell is asked to)
+        if name != "grid100k leaf 32":
+            okn = phase_near_cases(name, pk, rays, shadow, cases, pre, reports)
+            ok &= okn
         # return_tri: the slot -> triangle map through tid, kernel path
         planes = lambda x: tuple(x[i] for i in range(8))
         kt = trace.fused_trace_planes(scene, *planes(rays)[:6], cfg,
@@ -280,6 +299,69 @@ def phase_kernels(dev):
     ok2b &= phase_intersect_kernels("grid6000 leaf 8", grid6k, cam, ("slot",),
                                     gen, reports)
     return ok, ok2b, reports
+
+
+def phase_near_cases(name, pk, rays, shadow, cases, pre, reports):
+    """Kernel 3 on the cases of phase 2 (without the closest-hit case
+    without attributes): the near kernel bitwise equal to the near plain
+    version on the same packet directions, the packet directions' kernel
+    bitwise equal to its plain version, and the lanes where near differs
+    from the preorder kernel counted (each must lie in the tie band)."""
+    from tinyraytracing_tpu_torch.config import RenderConfig
+    from tinyraytracing_tpu_torch.ops import trace
+
+    cfg = RenderConfig(walk_order="near", bvh_walk="wide")
+    ok = True
+    for label, r, attrs, occl, _ in cases:
+        if label == "closest no-attrs":
+            continue
+        tile = trace.near_tile(pk, cfg, occl)
+        md = trace.packet_dirs_kernel(r, tile)
+        md_plain = trace.packet_dirs_plain(r, tile)
+        k = trace.trace_kernel(pk, r, cfg, attrs=attrs, occl=occl, tile=tile,
+                               md=md)
+        stats = {}
+        p = trace.trace_plain(pk, r, cfg, attrs=attrs, occl=occl, tile=tile,
+                              md=md, stats=stats)
+        torch.cuda.synchronize()
+        same = torch.equal(k, p) and torch.equal(md, md_plain)
+        _compare(f"near {label}", k, p, attrs, occl, reports["trace_near"])
+        # lanes where the order decided: any plane differs from preorder
+        diff = (k != pre[label]).any(dim=0)
+        ta, tb = k[0][diff], pre[label][0][diff]
+        band = (ta - tb).abs() <= cfg.tie_eps * torch.maximum(ta.abs(),
+                                                              tb.abs())
+        kms = _events_ms(lambda: trace.trace_kernel(
+            pk, r, cfg, attrs=attrs, occl=occl, tile=tile, md=md), 10)
+        pms = _events_ms(lambda: trace.trace_plain(
+            pk, r, cfg, attrs=attrs, occl=occl, tile=tile, md=md), 2)
+        (bms, by), nbytes = _walk_bound(stats, r.shape[1], 8,
+                                        2 if occl else 9)
+        log(f"    near [{name}] {label}, packets of {tile}: kernel and plain "
+            f"{'bitwise equal' if same else 'DIFFER'}; {int(diff.sum())} lanes "
+            f"differ from preorder ({int((~band).sum())} outside the tie band)"
+            f"; kernel {kms:.4f} ms, plain {pms:.1f} ms; {stats['node_visits']}"
+            f" slab tests, {stats['slot_tests']} slot tests, "
+            f"{stats['near_sorts']} sorts, {nbytes} bytes: bound {bms:.4f} ms "
+            f"({by})")
+        ok &= same and bool(band.all())
+        if name == "grid100k leaf 8" and label == "closest attrs":
+            reports["trace_near"].update(ms=kms, plain_ms=pms, bound_ms=bms,
+                                         bound_by=by)
+            R, n = r.shape[1], md.shape[0]
+            dms = _events_ms(lambda: trace.packet_dirs_kernel(r, tile), 20)
+            dpms = _events_ms(lambda: trace.packet_dirs_plain(r, tile), 2)
+            lib = _events_ms(lambda: r[3:6, :n * tile].reshape(3, n, tile)
+                             .sum(dim=2), 20) if R == n * tile else None
+            (dbms, dby) = _bound(3 * R, 4 * 3 * (R + n))
+            reports["packet_dirs"].update(
+                ms=dms, plain_ms=dpms, bound_ms=dbms, bound_by=dby,
+                library_ms=lib,
+                max_abs_err=float((md - md_plain).abs().max()))
+            log(f"    packet_dirs at {R} rays, {n} packets: kernel {dms:.4f} ms"
+                f", plain {dpms:.1f} ms, torch sum {lib} ms; bound "
+                f"{dbms:.5f} ms ({dby})")
+    return ok
 
 
 # ---------------------------------------------------------------------------
@@ -385,59 +467,35 @@ def phase_intersect_kernels(name, scene, cam, kinds, gen, reports):
 # ---------------------------------------------------------------------------
 
 def phase_cli(dev, out_dir):
-    import tinyraytracing_tpu_torch.integrator.fused_queue as fq
+    """Phase 3: grid:100000 through the CLI with "auto" (the queue, through
+    the chunked driver). Only the render call is timed; kernel and busy time
+    come from torch.profiler of the same render run again (_render_report)."""
+    import tinyraytracing_tpu_torch.render as render_mod
     from tinyraytracing_tpu_torch import cli
     from tinyraytracing_tpu_torch.ops import trace
 
     seen = {}
-    kernel_events = []
-    real_render, real_kernel = fq.render_fused_queue, trace.trace_kernel
-
-    def render_rec(*a, **k):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        img, rays = real_render(*a, **k)
-        torch.cuda.synchronize()
-        seen.update(img=img, rays=float(rays), seconds=time.perf_counter() - t0)
-        return img, rays
-
-    def kernel_rec(*a, **k):
-        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        e0.record()
-        out = real_kernel(*a, **k)
-        e1.record()
-        kernel_events.append((e0, e1))
-        return out
-
-    out = f"{out_dir}/grid100k.png"
+    real = render_mod.render_fused_queue_chunked
     argv = ["--scene", "grid:100000", "--width", "1024", "--height", "1024",
-            "--spp", "4", "--out", out]
+            "--spp", "4", "--out", f"{out_dir}/grid100k.png"]
     torch.cuda.reset_peak_memory_stats()
-    fq.render_fused_queue, trace.trace_kernel = render_rec, kernel_rec
+    render_mod.render_fused_queue_chunked = _timed_entry(
+        "render_fused_queue_chunked", real, seen)
     trace.reset_launch_counts()
     try:
         t0 = time.perf_counter()
         rc = cli.main(argv)
         wall = time.perf_counter() - t0
     finally:
-        fq.render_fused_queue, trace.trace_kernel = real_render, real_kernel
+        render_mod.render_fused_queue_chunked = real
     launches = dict(trace.LAUNCHES)
-    torch.cuda.synchronize()
-    kms = sum(a.elapsed_time(b) for a, b in kernel_events)
-    render_ms = seen["seconds"] * 1e3
-    img = seen["img"]
-    mean = float(img.mean())
-    peak = torch.cuda.max_memory_allocated()
     log(f"phase 3: cli {' '.join(argv[:-2])} (spp cut from config 3's 512 to 4 "
-        f"only to fit the smoke's time limit) -> rc {rc}")
-    log(f"  cli wall {wall:.2f}s incl. scene + BVH build; render {seen['seconds']:.3f}s, "
-        f"{seen['rays']:.0f} traced rays, {seen['rays'] / seen['seconds']:.4g} rays/s")
-    log(f"  kernel launches {launches}; time in kernels {kms:.1f} ms = "
-        f"{100 * kms / render_ms:.1f}% of the render, rest {render_ms - kms:.1f} ms")
-    log(f"  peak device memory {peak / 2**20:.1f} MiB; image mean {mean:.6g}, "
-        f"shape {tuple(img.shape)}")
-    ok = (rc == 0 and all(v > 0 for v in launches.values())
-          and bool(torch.isfinite(img).all()) and mean > 0)
+        f"only to fit the smoke's time limit; the chunked queue driver) -> rc {rc}")
+    img = _render_report("queue grid:100000", wall, seen, launches, real,
+                         ("trace_kernel",))
+    ok = (rc == 0 and launches["trace_closest"] > 0
+          and launches["trace_occlusion"] > 0 and launches["trace_near"] == 0
+          and bool(torch.isfinite(img).all()) and float(img.mean()) > 0)
     return ok, launches
 
 
@@ -448,7 +506,7 @@ def phase_cli(dev, out_dir):
 def _profiled(fn, kernel_name):
     """Device time of one run of ``fn`` under torch.profiler (CUDA activity
     only): (kernels, device busy ms, ms in kernels whose name holds
-    ``kernel_name``)."""
+    ``kernel_name``, or any of them if it is a tuple)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -460,7 +518,9 @@ def _profiled(fn, kernel_name):
         torch.cuda.synchronize()
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.device_time_total for e in dev)
-    kern_us = sum(e.device_time_total for e in dev if kernel_name in e.name)
+    names = kernel_name if isinstance(kernel_name, tuple) else (kernel_name,)
+    kern_us = sum(e.device_time_total for e in dev
+                  if any(n in e.name for n in names))
     return len(dev), busy_us / 1e3, kern_us / 1e3
 
 
@@ -573,6 +633,127 @@ def phase_cli_scan(dev, out_dir, size=1024):
 
 
 # ---------------------------------------------------------------------------
+# phases 3c and 3d: the persistent renderer, and kernel 3 on the main path
+# ---------------------------------------------------------------------------
+
+def _timed_entry(name, stats_fn, seen):
+    """A stand-in for ``render.<name>`` that runs ``stats_fn`` (the same
+    render, returning (image, traced rays)) between two synchronisations
+    and records its arguments, image, ray count and seconds in ``seen``."""
+    def timed(*a, **k):
+        seen["args"] = (a, k)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img, rays = stats_fn(*a, **k)
+        torch.cuda.synchronize()
+        seen.update(img=img, rays=float(rays), seconds=time.perf_counter() - t0)
+        return (img, rays) if name == "render_fused_queue_chunked" else img
+    return timed
+
+
+def _render_report(label, wall, seen, counts, stats_fn, kernels):
+    """Log one main-path render: wall and render time, rays/s, launches,
+    and kernel and busy time from torch.profiler of the same render run
+    again; returns the image."""
+    a, k = seen["args"]
+    n_dev, busy_ms, kern_ms = _profiled(lambda: stats_fn(*a, **k), kernels)
+    img, secs = seen["img"], seen["seconds"]
+    render_ms = 1e3 * secs
+    log(f"  {label}: wall {wall:.2f}s; render {secs:.3f}s, {seen['rays']:.0f} "
+        f"traced rays, {seen['rays'] / secs:.4g} rays/s; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; image mean "
+        f"{float(img.mean()):.6g}, shape {tuple(img.shape)}")
+    log(f"  kernel launches {counts}; the same render under torch.profiler: "
+        f"{n_dev} device ops, {kern_ms:.1f} ms in {'/'.join(kernels)} = "
+        f"{100 * kern_ms / render_ms:.1f}% of the unprofiled render, device "
+        f"busy {busy_ms:.1f} ms: the card idles "
+        f"{100 * (1 - busy_ms / render_ms):.0f}%")
+    return img
+
+
+def phase_cli_persistent(dev, out_dir):
+    """Phase 3c: cornell through the CLI with "auto" (under 512 triangles:
+    the persistent renderer) at 1024x1024, 4 spp, 262,144 lanes: 4 epochs
+    of one merged bounce + shadow dispatch per iteration."""
+    import tinyraytracing_tpu_torch.render as render_mod
+    from tinyraytracing_tpu_torch import cli
+    from tinyraytracing_tpu_torch.integrator.fused import render_fused_stats
+    from tinyraytracing_tpu_torch.ops import trace
+
+    seen = {}
+    real = render_mod.render_fused_image
+    argv = ["--scene", "cornell", "--width", "1024", "--height", "1024",
+            "--spp", "4", "--lanes", "262144", "--out", f"{out_dir}/cornell.png"]
+    torch.cuda.reset_peak_memory_stats()
+    render_mod.render_fused_image = _timed_entry("render_fused_image",
+                                                 render_fused_stats, seen)
+    trace.reset_launch_counts()
+    try:
+        t0 = time.perf_counter()
+        rc = cli.main(argv)
+        wall = time.perf_counter() - t0
+    finally:
+        render_mod.render_fused_image = real
+    counts = dict(trace.LAUNCHES)
+    log(f"phase 3c: cli {' '.join(argv[:-2])} (auto: the persistent renderer, "
+        f"4 epochs of 262,144 lanes) -> rc {rc}")
+    img = _render_report("persistent cornell", wall, seen, counts,
+                         render_fused_stats, ("trace_kernel",))
+    ok = (rc == 0 and counts["trace_closest"] > 0 and counts["trace_near"] == 0
+          and counts["trace_occlusion"] == 0 and tuple(img.shape) == (1024, 1024, 3)
+          and bool(torch.isfinite(img).all()) and float(img.mean()) > 0)
+    return ok
+
+
+def phase_near_queue(dev):
+    """Phase 3d: grid:100000 (config 3, leaf 8) at 1024x1024, 4 spp through
+    ``render_image`` with walk_order="near" (the chunked queue; every
+    trace walks near-first, and shadow compaction and the morton resort
+    follow the JAX package's auto rules), then the same call under
+    preorder; the two images compared."""
+    import tinyraytracing_tpu_torch.render as render_mod
+    from tinyraytracing_tpu_torch.config import RenderConfig
+    from tinyraytracing_tpu_torch.models.procedural import quad_grid
+    from tinyraytracing_tpu_torch.ops import trace
+
+    scene, cam = quad_grid(100_000, 1024, 1024, device=dev)       # leaf 8
+    real = render_mod.render_fused_queue_chunked
+    imgs, launches, ok = {}, {}, True
+    log(f"phase 3d: render_image(grid:100000, 1024x1024, 4 spp, queue) "
+        f"with walk_order near, then preorder ({scene.bvh.packed.n_wide} wide "
+        f"nodes)")
+    for order in ("near", "preorder"):
+        seen = {}
+        cfg = RenderConfig(walk_order=order)
+        torch.cuda.reset_peak_memory_stats()
+        render_mod.render_fused_queue_chunked = _timed_entry(
+            "render_fused_queue_chunked", real, seen)
+        trace.reset_launch_counts()
+        try:
+            t0 = time.perf_counter()
+            render_mod.render_image(scene, cam, cfg, spp=4, renderer="queue")
+            wall = time.perf_counter() - t0
+        finally:
+            render_mod.render_fused_queue_chunked = real
+        launches[order] = dict(trace.LAUNCHES)
+        img = _render_report(order, wall, seen, launches[order], real,
+                             ("trace_kernel", "packet_dirs_kernel"))
+        imgs[order] = img.reshape(cam.height, cam.width, 3).cpu()
+        ok &= bool(torch.isfinite(img).all()) and float(img.mean()) > 0
+    a, b = imgs["near"], imgs["preorder"]
+    close = torch.isclose(a, b, rtol=1e-4, atol=1e-5).all(dim=-1)
+    mean_rel = abs(float(a.mean()) - float(b.mean())) / float(b.mean())
+    log(f"  near vs preorder: {int((~close).sum())} of {close.numel()} pixels "
+        f"outside rtol 1e-4/atol 1e-5 (bound: 1%), image means differ "
+        f"{mean_rel:.3g} relative (bound 1e-4)")
+    near = launches["near"]
+    ok &= (near["trace_near"] > 0 and near["packet_dirs"] == near["trace_near"]
+           and near["trace_closest"] == 0 and near["trace_occlusion"] == 0
+           and bool(close.float().mean() >= 0.99) and mean_rel <= 1e-4)
+    return ok, near
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the same render on the card and on the CPU
 # ---------------------------------------------------------------------------
 
@@ -610,6 +791,81 @@ def phase_scan_vs_scan(dev):
         secs[where] = time.perf_counter() - t0
     return _compare_images("phase 4b: scan cornell 64x64 @ 2 spp, bvh_pallas",
                            imgs, secs, 64)
+
+
+def phase_persistent_vs_persistent(dev):
+    """Phase 4c: the persistent render of cornell on the card (the closest
+    hit kernel) and on the CPU (its plain version)."""
+    from tinyraytracing_tpu_torch.config import RenderConfig
+    from tinyraytracing_tpu_torch.integrator.fused import render_fused_image
+    from tinyraytracing_tpu_torch.models.procedural import cornell_box
+    from tinyraytracing_tpu_torch.ops.bvh import attach_bvh
+    from tinyraytracing_tpu_torch.ops.rng import master_key_data
+
+    cfg = RenderConfig()
+    scene, cam = cornell_box(64, 64, device="cpu")
+    scene = attach_bvh(scene, cfg)
+    imgs, secs = {}, {}
+    for where, s in (("cuda", scene.to(dev)), ("cpu", scene)):
+        t0 = time.perf_counter()
+        imgs[where] = render_fused_image(s, cam, master_key_data(0), cfg,
+                                         2).cpu()
+        secs[where] = time.perf_counter() - t0
+    return _compare_images("phase 4c: persistent cornell 64x64 @ 2 spp",
+                           imgs, secs, 64)
+
+
+def phase_resume(dev, tmp):
+    """Phase 5: the chunked queue render of grid:6000 (64x64, 4 spp, 4096
+    lanes) with a snapshot after every chunk, interrupted after three
+    chunks and resumed, against the one-shot render: within the float-add
+    rounding of the scatter's atomics, the same ray count, the resume
+    continuing from the snapshot, and the snapshot removed at the end."""
+    import os
+
+    from tinyraytracing_tpu_torch.config import RenderConfig
+    from tinyraytracing_tpu_torch.integrator.fused_queue import (
+        render_fused_queue, render_fused_queue_chunked,
+    )
+    from tinyraytracing_tpu_torch.models.procedural import quad_grid
+    from tinyraytracing_tpu_torch.ops.rng import master_key_data
+
+    class Interrupted(Exception):
+        pass
+
+    scene, cam = quad_grid(6000, 64, 64, device=dev)
+    cfg, key = RenderConfig(), master_key_data(0)
+    one, rays = render_fused_queue(scene, cam, key, cfg, 4, lanes=4096)
+    path = f"{tmp}/queue.npz"
+    kw = dict(lanes=4096, target_chunk_s=1e-9, checkpoint_path=path,
+              checkpoint_every_s=0.0)
+    first, then = [], []
+
+    def stop(it, counter, seconds):
+        first.append(it)
+        if len(first) == 3:
+            raise Interrupted
+
+    try:
+        render_fused_queue_chunked(scene, cam, key, cfg, 4, progress=stop, **kw)
+    except Interrupted:
+        pass
+    saved = os.path.exists(path)
+    got, rays2 = render_fused_queue_chunked(
+        scene, cam, key, cfg, 4, resume=True,
+        progress=lambda it, counter, seconds: then.append(it), **kw)
+    cleared = not os.path.exists(path)
+    close = torch.isclose(got, one, rtol=1e-5, atol=1e-7).all(dim=-1)
+    err = float((got - one).abs().max())
+    log(f"phase 5: chunked grid:6000 64x64 @ 4 spp, 4096 lanes: interrupted "
+        f"after iterations {first} (snapshot written: {saved}), resumed at "
+        f"{then[0]} of {then[-1]} iterations; {int((~close).sum())} of "
+        f"{close.numel()} pixels outside rtol 1e-5/atol 1e-7 of the one-shot "
+        f"render (max abs diff {err:.3g}); rays {float(rays2):.0f} vs "
+        f"{float(rays):.0f}; snapshot removed: {cleared}")
+    return (saved and cleared and then[0] > first[1] and bool(close.all())
+            and float(rays2) == float(rays))
+
 
 def phase_render_vs_render(dev):
     from tinyraytracing_tpu_torch.config import RenderConfig
@@ -656,21 +912,29 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         ok3, launches = phase_cli(dev, tmp)
         ok3b, scan_launches = phase_cli_scan(dev, tmp)
+        ok3c = phase_cli_persistent(dev, tmp)
+        ok3d, near_launches = phase_near_queue(dev)
+        ok5 = phase_resume(dev, tmp)
     launches.update(scan_launches)
+    launches.update({k: near_launches[k] for k in ("trace_near", "packet_dirs")})
     ok4 = phase_render_vs_render(dev)
     ok4b = phase_scan_vs_scan(dev)
+    ok4c = phase_persistent_vs_persistent(dev)
 
-    # no single PyTorch call computes a BVH or brute-force closest hit
+    # no single PyTorch call computes a BVH walk or brute-force closest
+    # hit; the packet sums have one (a sum over each packet)
     kern = [dict(name=k, route="cuda", source=SOURCES[k], replaces=REPLACES[k],
                  launches=launches.get(k, 0), max_abs_err=r["max_abs_err"],
                  ms=r.get("ms"), plain_ms=r.get("plain_ms"),
                  bound_ms=r.get("bound_ms"), bound_by=r.get("bound_by"),
-                 library_ms=None)
+                 library_ms=r.get("library_ms"))
             for k, r in reports.items()]
     log(json.dumps({"kernels": kern}))
     phases = {"kernels": ok2, "scan kernels": ok2b, "cli render": ok3,
-              "cli scan render": ok3b, "render vs render": ok4,
-              "scan vs scan": ok4b}
+              "cli scan render": ok3b, "cli persistent render": ok3c,
+              "near queue render": ok3d, "render vs render": ok4,
+              "scan vs scan": ok4b, "persistent vs persistent": ok4c,
+              "chunked resume": ok5}
     log("phases: " + ", ".join(f"{k} {'ok' if v else 'FAILED'}"
                                for k, v in phases.items()))
     if not all(phases.values()):

@@ -1,4 +1,4 @@
-"""The CUDA kernels (csrc/trace.cu, csrc/bvh_intersect.cu,
+"""The CUDA kernels (csrc/trace.cu in both walk orders, csrc/bvh_intersect.cu,
 csrc/slot_intersect.cu) against their plain PyTorch versions on the same
 CUDA tensors, at small size. They need a CUDA device
 and nvcc, so they skip elsewhere; on the GPU machine run
@@ -62,15 +62,35 @@ def _rays(n, device, shadow_scene=None):
 @pytest.mark.parametrize("shadow", [False, True])
 @pytest.mark.parametrize("name", ["cornell", "grid", "grid32"])
 def test_kernels_bitwise_equal_plain(name, shadow, device):
+    """Both walk orders; the near-first walk in packets of 512 rays, each
+    with its packet's direction sum, the same tensor for both sides."""
     scene = _scene(name, device)
     pk = scene.bvh.packed
     rays = _rays(4096, device, scene if shadow else None)
-    cfg = RenderConfig()
-    for occl, attrs in ((False, True), (False, False), (True, False)):
-        k = trace.trace_kernel(pk, rays, cfg, attrs=attrs, occl=occl)
-        p = trace.trace_plain(pk, rays, cfg, attrs=attrs, occl=occl)
+    near = RenderConfig(walk_order="near", bvh_walk="wide", ray_tile=512)
+    for cfg in (RenderConfig(), near):
+        for occl, attrs in ((False, True), (False, False), (True, False)):
+            tile, md = trace.walk_packets(pk, rays, cfg, occl)
+            assert (md is not None) == (cfg is near)
+            k = trace.trace_kernel(pk, rays, cfg, attrs=attrs, occl=occl,
+                                   tile=tile, md=md)
+            p = trace.trace_plain(pk, rays, cfg, attrs=attrs, occl=occl,
+                                  tile=tile, md=md)
+            torch.cuda.synchronize()
+            assert torch.equal(k, p), (cfg.walk_order, occl, attrs,
+                                       (k != p).sum(dim=1).tolist())
+
+
+def test_packet_dirs_kernel_bitwise_equal_plain(device):
+    """The near-first walk's packet direction sums: the kernel adds in the
+    plain version's (XLA's) order, so the sums are bitwise equal, at every
+    packet size, with a padded last packet."""
+    rays = _rays(5000, device)
+    for tile in (128, 1024, 2048, 4096):
+        k = trace.packet_dirs_kernel(rays, tile)
+        p = trace.packet_dirs_plain(rays, tile)
         torch.cuda.synchronize()
-        assert torch.equal(k, p), (occl, attrs, (k != p).sum(dim=1).tolist())
+        assert k.shape == (-(-5000 // tile), 3) and torch.equal(k, p), tile
 
 
 def test_wrapper_launches_kernel_on_cuda(device):
@@ -82,7 +102,17 @@ def test_wrapper_launches_kernel_on_cuda(device):
     trace.fused_trace_planes(scene, x + 278, x + 273, x - 500, x, x, x + 1,
                              RenderConfig(), t_bound=x + 900,
                              target_mtl=x, query="occlusion")
-    assert trace.LAUNCHES == {"trace_closest": 1, "trace_occlusion": 1}
+    assert trace.LAUNCHES == {"trace_closest": 1, "trace_occlusion": 1,
+                              "trace_near": 0, "packet_dirs": 0}
+    # near on cornell: closest hit walks binary (preorder), occlusion wide
+    near = RenderConfig(walk_order="near")
+    trace.fused_trace_planes(scene, x + 278, x + 273, x - 500, x, x, x + 1,
+                             near)
+    trace.fused_trace_planes(scene, x + 278, x + 273, x - 500, x, x, x + 1,
+                             near, t_bound=x + 900, target_mtl=x,
+                             query="occlusion")
+    assert trace.LAUNCHES == {"trace_closest": 2, "trace_occlusion": 1,
+                              "trace_near": 1, "packet_dirs": 1}
 
 
 @pytest.mark.parametrize("shadow", [False, True])

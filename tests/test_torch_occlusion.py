@@ -42,7 +42,7 @@ def test_early_kill_and_park_match_pallas_kernel(walk):
     light = float(np.asarray(js.light_mtl)[0])
     org, d, tb = _kill_rays()
     tg = np.full(len(tb), light, np.float32)
-    j, t = trace_both("cornell", org, d, walk=walk, t_bound=tb,
+    j, t = trace_both("cornell", org, d, cfg=dict(bvh_walk=walk), t_bound=tb,
                       target_mtl=tg, return_tri=True)
     np.testing.assert_array_equal(t[6], j[6])
     np.testing.assert_array_equal(t[7], j[7])

@@ -1,6 +1,7 @@
-"""The port's queue-fed renderer against the JAX package's
-``render_fused_queue_jit`` on the CPU: same scene arrays, same seed (hence
-the same threefry sample streams), same lanes and config.
+"""The port's fused renderers against the JAX package's on the CPU — the
+queue-fed ``render_fused_queue_jit`` (also under the near-first walk) and
+the pixel-persistent ``render_fused_jit`` — with the same scene arrays,
+seed (hence the same threefry sample streams), lanes and config.
 
 As each package runs by default the renders cannot be bitwise equal: XLA
 contracts a*b+c into FMAs, the JAX CPU trace is Moller-Trumbore rather
@@ -54,6 +55,8 @@ def test_queue_render_matches_jax(name, cfg, aligned):
     close = np.isclose(got, want, rtol=1e-4, atol=1e-5).all(axis=-1)
     assert close.mean() >= 0.99, f"{(~close).sum()} of {close.size} pixels differ"
     assert abs(got.mean() - want.mean()) <= 1e-4 * want.mean()
+    # aligned, every pixel agrees to the rounding of its sums (~1e-7)
+    assert np.abs(got - want).max() <= 1e-6
 
 
 def test_queue_render_is_deterministic_and_seeded():
@@ -95,30 +98,40 @@ def test_cli_renders_png(tmp_path):
         assert np.asarray(im).mean() > 0
 
 
-def test_unported_renderers_raise():
-    """The renderers still to port raise naming their ROADMAP item; the scan
-    renderer, ported now, renders the same small scene."""
+def test_unported_renderers_raise(tmp_path):
+    """Every renderer is served now (the persistent one and checkpointed
+    queue renders raised in the first slices): "auto" on cornell is the
+    persistent renderer, a queue render with a checkpoint path renders
+    chunked and removes its snapshot, and the scan renderer renders the
+    same small scene."""
     scene, cam = cornell_box(8, 8, device="cpu")
     cam = dataclasses.replace(cam, width=8, height=8)
-    for kw in (dict(renderer="persistent"),
-               dict(renderer="auto"),               # cornell: persistent
-               dict(renderer="queue", checkpoint_path="x.npz")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            render_image(scene, cam, RenderConfig(), spp=1, **kw)
-    img = render_image(scene, cam, RenderConfig(max_depth=3), spp=1,
-                       renderer="scan")
-    assert img.shape == (8, 8, 3) and np.isfinite(img).all() and img.mean() > 0
+    cfg = RenderConfig(max_depth=3)
+    pers = render_image(scene, cam, cfg, spp=1, renderer="persistent")
+    auto = render_image(scene, cam, cfg, spp=1)
+    np.testing.assert_array_equal(auto, pers)
+    ckpt = tmp_path / "queue.npz"
+    queue = render_image(scene, cam, cfg, spp=1, renderer="queue",
+                         checkpoint_path=str(ckpt))
+    np.testing.assert_array_equal(
+        queue, render_image(scene, cam, cfg, spp=1, renderer="queue"))
+    assert not ckpt.exists()
+    scan = render_image(scene, cam, cfg, spp=1, renderer="scan")
+    for img in (pers, queue, scan):
+        assert img.shape == (8, 8, 3) and np.isfinite(img).all()
+        assert img.mean() > 0
 
 
-# the intersector values were unported in the first slice; they are served
-# now (the scan renderer dispatches on them, the queue ignores them)
+# the intersector values and walk_order="near" were unported in the first
+# slices; they are served now (the scan renderer dispatches on the
+# intersector, the queue ignores it; near orders the trace's walk)
 @pytest.mark.parametrize("field,value", [
     ("walk_order", "near"), ("intersector", "brute"),
     ("intersector", "bvh_pallas"), ("accum_dtype", "bfloat16")])
 def test_unported_config_raises(field, value):
     _, _, ts, tcam = _pair("cornell")
     cfg = RenderConfig(**{field: value})
-    if field != "intersector":
+    if field == "accum_dtype":
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             render_image(ts, tcam, cfg, spp=1, renderer="queue", lanes=128)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -127,8 +140,14 @@ def test_unported_config_raises(field, value):
     cfg = cfg.replace(max_depth=3)
     key = master_key_data(0)
     base = RenderConfig(max_depth=3)
-    assert torch.equal(render_fused_queue(ts, tcam, key, cfg, 1, lanes=128)[0],
-                       render_fused_queue(ts, tcam, key, base, 1, lanes=128)[0])
+    got = render_fused_queue(ts, tcam, key, cfg, 1, lanes=128)[0]
+    want = render_fused_queue(ts, tcam, key, base, 1, lanes=128)[0]
+    if field == "walk_order":
+        # the order may move a lane only inside the tie band: here none
+        close = torch.isclose(got, want, rtol=1e-4, atol=1e-5).all(dim=-1)
+        assert close.float().mean() >= 0.99
+    else:
+        assert torch.equal(got, want)
     img = render_image(ts, tcam, cfg, spp=1, renderer="scan")
     assert np.isfinite(img).all() and img.mean() > 0
 

@@ -182,7 +182,7 @@ def test_scene_to_device_keeps_arrays():
 
 @pytest.mark.parametrize("make", ["cornell_box", "cornell_box_specular",
                                   "quad_grid", "load_scene",
-                                  "scene_from_arrays"])
+                                  "scene_from_arrays", "assemble_scene"])
 def test_constructors_default_to_the_card(make):
     """The user-facing constructors put the scene on the CUDA device unless
     the caller asks for the CPU: without a card the default raises."""

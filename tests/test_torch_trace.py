@@ -46,7 +46,7 @@ def check_closest(j, t, attrs=True):
 def test_closest_hit_matches_pallas_kernel(name, walk):
     rng = np.random.default_rng(21)
     org, d = random_rays(rng, 512, *RAYS[name])
-    j, t = trace_both(name, org, d, walk=walk, return_tri=True)
+    j, t = trace_both(name, org, d, cfg=dict(bvh_walk=walk), return_tri=True)
     hit = check_closest(j, t)
     assert 0.3 < hit.mean() < 1.0
     assert (t[8][hit] >= 0).all() and (t[8][~hit] == -1).all()
@@ -83,11 +83,18 @@ def test_root_leaf_scene_matches_pallas_kernel():
 
 
 def test_walk_order_near_is_not_ported():
-    _, ts = scene_pair("cornell")
-    x = torch.zeros(4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttrace.fused_trace_planes(ts, x, x, x, x, x, x + 1.0,
-                                  RenderConfig(walk_order="near"))
+    """walk_order="near" (not ported in the first slices) is served now:
+    on cornell, whose closest hits the JAX kernel walks on the binary tree
+    under bvh_walk="auto", the port walks preorder — bitwise the preorder
+    render — and matches the JAX kernel under the same config."""
+    rng = np.random.default_rng(25)
+    org, d = random_rays(rng, 256, *RAYS["cornell"])
+    j, t = trace_both("cornell", org, d, cfg=dict(walk_order="near"),
+                      return_tri=True)
+    check_closest(j, t)
+    _, pre = trace_both("cornell", org, d, cfg={}, return_tri=True)
+    for a, b in zip(t, pre):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_plain_walk_counts_what_the_kernel_reads():

@@ -1,5 +1,6 @@
-"""Render the cases of tests/test_torch_render.py with both packages, with
-the arithmetic of the two aligned, and save the images:
+"""Render the cases of tests/test_torch_render.py (the queue renderer, and
+the persistent one for the configs named "persistent*") with both
+packages, with the arithmetic of the two aligned, and save the images:
 
     XLA_FLAGS=--xla_cpu_max_isa=AVX JAX_PLATFORMS=cpu \\
         python -m tests.torch_aligned_render OUT.npz [SCENE ...]
@@ -45,11 +46,13 @@ from jax import lax  # noqa: E402
 
 import tinyraytracing_tpu.ops.pallas_trace as jtrace  # noqa: E402
 from tinyraytracing_tpu.config import RenderConfig as JConfig  # noqa: E402
+from tinyraytracing_tpu.integrator.fused import render_fused_stats_jit  # noqa: E402
 from tinyraytracing_tpu.integrator.fused_queue import render_fused_queue_jit  # noqa: E402
 from tinyraytracing_tpu.models import procedural as jproc  # noqa: E402
 from tinyraytracing_tpu.ops.bvh import attach_bvh  # noqa: E402
 from tinyraytracing_tpu.render import render as jax_scan_render  # noqa: E402
 from tinyraytracing_tpu_torch.config import RenderConfig  # noqa: E402
+from tinyraytracing_tpu_torch.integrator.fused import render_fused_stats  # noqa: E402
 from tinyraytracing_tpu_torch.integrator.fused_queue import render_fused_queue  # noqa: E402
 from tinyraytracing_tpu_torch.models.camera import Camera  # noqa: E402
 from tinyraytracing_tpu_torch.ops import vec  # noqa: E402
@@ -68,10 +71,19 @@ CONFIGS = {
     "row": dict(queue_refill="row", queue_resort_every=2),
     "octant": dict(queue_resort_every=1, queue_resort_key="path_octant",
                    light_sampler="uniform", specular_weight="ks"),
+    # the near-first walk in packets of 256 lanes (two per bounce dispatch)
+    "near": dict(walk_order="near", bvh_walk="wide", ray_tile=256),
+    "near_compact": dict(walk_order="near", bvh_walk="wide", ray_tile=256,
+                         shadow_compact="on"),
+    # the persistent renderer (its merged bounce + shadow dispatch)
+    "persistent": {},
+    "persistent_tmin": dict(shadow_test="tmin", light_sampler="uniform"),
 }
 CASES = ([(n, c) for n in ("cornell", "grid600")
-          for c in ("default", "compact", "morton", "tmin")]
-         + [("grid600", "row"), ("cornell", "octant")])
+          for c in ("default", "compact", "morton", "tmin", "near",
+                    "persistent")]
+         + [("grid600", "row"), ("cornell", "octant"),
+            ("grid600", "near_compact"), ("cornell", "persistent_tmin")])
 
 # the scan renderer: every intersector backend on both scenes (the
 # "*pallas" ones as the JAX kernels in interpret mode and the port's plain
@@ -183,11 +195,20 @@ def main(out, names):
             if case != name:
                 continue
             kw = CONFIGS[cfg]
-            images[f"{name}-{cfg}-jax"] = np.asarray(render_fused_queue_jit(
-                js, jcam, jax.random.PRNGKey(SEED), JConfig(**kw), SPP,
-                lanes=LANES))
-            img, rays = render_fused_queue(ts, tcam, master_key_data(SEED),
-                                           RenderConfig(**kw), SPP, lanes=LANES)
+            jkey, tkey = jax.random.PRNGKey(SEED), master_key_data(SEED)
+            if cfg.startswith("persistent"):
+                jimg, _ = render_fused_stats_jit(js, jcam, jkey, JConfig(**kw),
+                                                 SPP, lanes=LANES)
+                img, rays = render_fused_stats(ts, tcam, tkey,
+                                               RenderConfig(**kw), SPP,
+                                               lanes=LANES)
+            else:
+                jimg = render_fused_queue_jit(js, jcam, jkey, JConfig(**kw),
+                                              SPP, lanes=LANES)
+                img, rays = render_fused_queue(ts, tcam, tkey,
+                                               RenderConfig(**kw), SPP,
+                                               lanes=LANES)
+            images[f"{name}-{cfg}-jax"] = np.asarray(jimg)
             images[f"{name}-{cfg}-port"] = img.reshape(SIZE, SIZE, 3).numpy()
             images[f"{name}-{cfg}-rays"] = np.float32(rays)
     np.savez(out, **images)

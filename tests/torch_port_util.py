@@ -173,17 +173,19 @@ SHADOW_RAYS = {"cornell": ((278.0, 150.0, 280.0), 120.0),
 SHADOW_RAYS["grid32"] = SHADOW_RAYS["grid"]
 
 
-def trace_both(name, org, d, walk="wide", **kw):
-    """Trace the same rays with the JAX interpret-mode kernel and the port;
-    extra numpy keyword planes (t_bound, target_mtl) go to both."""
+def trace_both(name, org, d, cfg=None, **kw):
+    """Trace the same rays with the JAX interpret-mode kernel and the port,
+    both under the config fields ``cfg`` (default: the wide walk); extra
+    numpy keyword planes (t_bound, target_mtl) go to both."""
     js, ts = scene_pair(name)
+    cfg = dict(bvh_walk="wide") if cfg is None else cfg
     jkw = {k: jnp.asarray(v) if isinstance(v, np.ndarray) else v
            for k, v in kw.items()}
     tkw = {k: torch.from_numpy(v) if isinstance(v, np.ndarray) else v
            for k, v in kw.items()}
     j = jtrace(js, *map(jnp.asarray, planes(org)), *map(jnp.asarray, planes(d)),
-               JConfig(bvh_walk=walk), force_kernel=True, **jkw)
+               JConfig(**cfg), force_kernel=True, **jkw)
     t = fused_trace_planes(
         ts, *map(torch.from_numpy, planes(org)),
-        *map(torch.from_numpy, planes(d)), RenderConfig(), **tkw)
+        *map(torch.from_numpy, planes(d)), RenderConfig(**cfg), **tkw)
     return [np.asarray(x) for x in j], [x.numpy() for x in t]

@@ -6,7 +6,7 @@ device and without ``--device cpu`` it exits with an error. Examples:
 
     python -m tinyraytracing_tpu_torch.cli --scene grid:100000 \\
         --width 1024 --height 1024 --spp 4 --out /tmp/x.png
-    python -m tinyraytracing_tpu_torch.cli --scene cornell --renderer scan \\
+    python -m tinyraytracing_tpu_torch.cli --scene cornell \\
         --width 64 --height 64 --spp 2 --device cpu --out /tmp/c.png
 """
 
@@ -37,9 +37,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--height", type=int, default=None, help="override XML image height")
     p.add_argument("--renderer", default="auto",
                    choices=["auto", "persistent", "queue", "scan"],
-                   help="auto = queue for >= 512 triangles, else persistent "
-                        "(not ported yet); scan = the fixed-depth wavefront "
-                        "with any --intersector")
+                   help="auto = queue for >= 512 triangles, else persistent; "
+                        "scan = the fixed-depth wavefront with any "
+                        "--intersector")
     p.add_argument("--lanes", type=int, default=262144,
                    help="wavefront width for the fused renderers")
     p.add_argument("--leaf-size", default="auto",
@@ -55,9 +55,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--shadow-test", default="mtl", choices=["mtl", "tmin"])
     p.add_argument("--out", default=None, help="output PNG (default basedir/image<SPP>.png)")
     p.add_argument("--checkpoint", default=None,
-                   help="lane-state snapshot path (not ported yet)")
+                   help="lane-state snapshot path for resumable long renders "
+                        "(queue renderer); pass with --resume to continue")
     p.add_argument("--resume", action="store_true",
-                   help="resume from --checkpoint (not ported yet)")
+                   help="resume from --checkpoint if present")
     p.add_argument("--no-compile-cache", action="store_true",
                    help="accepted for compatibility; has no effect")
     return p
@@ -140,10 +141,13 @@ def main(argv=None) -> int:
                  scene.bvh.packed.n_wide)
 
     out = args.out or os.path.join(args.basedir or ".", f"image{args.spp}.png")
+    prog = lambda it, counter, seconds: log.info(
+        "  chunk done: iter=%d paths_started=%d (%.1fs)", it, counter, seconds)
     t0 = time.perf_counter()
     render_image(scene, cam, config, spp=args.spp, seed=args.seed,
                  out_path=out, renderer=args.renderer, lanes=args.lanes,
-                 checkpoint_path=args.checkpoint, resume=args.resume)
+                 checkpoint_path=args.checkpoint, resume=args.resume,
+                 progress=prog)
     dt = time.perf_counter() - t0
     n_rays = cam.width * cam.height * args.spp
     log.info("rendered %s in %.2fs (%.3g camera rays/s)", out, dt, n_rays / dt)

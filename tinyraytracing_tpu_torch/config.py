@@ -4,19 +4,27 @@ rationale and the reference file:line it mirrors).
 
 Every field is accepted, so a config carries across unchanged. Every
 ``intersector`` value is served: the scan renderer dispatches on it
-(``ops/intersect.py``; the queue renderer has its own trace kernels and
-ignores it). The scan path's ``ray_chunk`` (part of its sample stream),
-``tri_chunk`` (the brute and mxu chunking) and ``bvh_early_out`` (the
-"bvh" walk's pruning) act as in the JAX package. What the port does with
-the fields it does not act on:
+(``ops/intersect.py``; the fused renderers have their own trace kernels
+and ignore it). The scan path's ``ray_chunk`` (part of its sample
+stream), ``tri_chunk`` (the brute and mxu chunking) and ``bvh_early_out``
+(the "bvh" walk's pruning) act as in the JAX package. The fused
+renderers' trace:
 
-- no effect on a forward render, by design: the TPU packet-kernel layout
-  knobs ``ray_tile``, ``trace_super_rays`` and ``bvh_walk`` (the per-ray
-  walks' results do not depend on them), and ``detach_sampling``, which
-  only steers gradients;
-- not ported, so a render raises ``NotImplementedError`` naming the
-  ROADMAP.md item (``check_ported``): ``accum_dtype`` other than
-  "float32", and ``walk_order="near"``.
+- under ``walk_order="preorder"`` (the default) the per-ray walks'
+  results do not depend on the TPU packet-kernel knobs ``ray_tile``,
+  ``trace_super_rays`` and ``bvh_walk``, so they change nothing, and
+  ``shadow_compact`` / ``queue_resort_every`` "auto" mean off (measured
+  on the H100, PERF.md);
+- under ``walk_order="near"`` a ray's children are ordered by its packet's
+  summed direction, so ``bvh_walk`` (which walk, and so whether the order
+  applies) and ``ray_tile`` (the packets) change a render within the tie
+  band, and ``shadow_compact`` / ``queue_resort_every`` "auto" follow the
+  JAX package's rules, so the packets are the JAX package's
+  (``ops/trace.py``); ``trace_super_rays`` still changes nothing.
+
+``detach_sampling`` only steers gradients. Not ported, so a render raises
+``NotImplementedError`` naming the ROADMAP.md item (``check_ported``):
+``accum_dtype`` other than "float32".
 """
 
 from __future__ import annotations
@@ -57,14 +65,14 @@ class RenderConfig:
     shadow_test: str = "mtl"       # mtl | tmin
     # queue renderer
     queue_refill: str = "lane"     # lane | row
-    queue_resort_every: int = -1   # 0 never, -1 auto (never in the port)
+    queue_resort_every: int = -1   # 0 never, -1 auto (see above)
     queue_resort_key: str = "path"  # path | path_octant | morton
     morton_cells: int = 32
-    # TPU packet-kernel knobs (no effect on the per-ray walk)
+    # TPU packet-kernel knobs (they act only under walk_order="near")
     ray_tile: int = 0
     bvh_walk: str = "auto"         # auto | wide | binary
-    shadow_compact: str = "auto"   # auto (off in the port) | on | off
-    walk_order: str = "preorder"   # preorder | near (not ported)
+    shadow_compact: str = "auto"   # auto | on | off
+    walk_order: str = "preorder"   # preorder | near
     trace_super_rays: int = 131072
     # differentiation (not ported yet)
     detach_sampling: bool = True
@@ -80,19 +88,14 @@ DEFAULT_CONFIG = RenderConfig()
 _UNPORTED = {
     "accum_dtype": (("float32",),
                     "reduced-precision accumulation (ROADMAP.md, modules to "
-                    "port, item 5: diff/)"),
-    "walk_order": (("preorder",),
-                   "the experimental near-first wide walk (ROADMAP.md, TPU "
-                   "kernels to port, item 3)"),
+                    "port: diff/)"),
 }
 
 
-def check_ported(config: RenderConfig, fields=tuple(_UNPORTED)) -> None:
-    """Raise NotImplementedError if ``config`` asks, in one of ``fields``,
-    for something the port does not have yet, instead of rendering
-    without it."""
-    for field in fields:
-        ported, what = _UNPORTED[field]
+def check_ported(config: RenderConfig) -> None:
+    """Raise NotImplementedError if ``config`` asks for something the port
+    does not have yet, instead of rendering without it."""
+    for field, (ported, what) in _UNPORTED.items():
         value = getattr(config, field)
         if value not in ported:
             raise NotImplementedError(

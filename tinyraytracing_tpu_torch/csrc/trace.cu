@@ -10,6 +10,10 @@
 //                       update _leaf_slots.run_slots.
 //   query "occlusion" : the same kernels with occl=True; slot update
 //                       _leaf_slots.run_slots_occl, carry _init_carry(occl).
+//   walk_order "near" : the same wide kernels with ordered=True: the
+//                       near-first push of _interior_push (keys along
+//                       _mean_dir, the _SORT8 network) and the pop-time
+//                       stale cull (ORDERED below).
 // The TPU kernels walk one 8-wide tree per PACKET of rays with a scalar
 // stack, because the TPU's scalar unit drives the walk; their SMEM/HBM
 // variants and DMA prefetch are memory placements that are bitwise equal to
@@ -19,6 +23,21 @@
 // its own ray, with its own stack, testing children against its own best t
 // and pushing hits in reverse child order so pops follow the binary
 // preorder — the packet walk's results, lane for lane.
+//
+// Near-first (ORDERED): the packet walk pushes the children the packet
+// keeps in descending order of key = centre . md, md being the packet's
+// summed direction. Here the wrapper (ops/trace.py::walk_packets) groups
+// the rays into the JAX kernel's packets and passes md per packet; each
+// thread keys the children IT keeps with its packet's md, gives the others
+// 3e38, and runs the same 19-exchange network, so among its own children
+// it pops in the packet's order (exactly, unless two keys tie). Each push
+// also records the thread's entry distance max(t0, 0) on a parallel float
+// stack, and a popped node whose entry exceeds bt*(1+tie_eps) is skipped:
+// no hit inside can replace or kill any more, so the cull changes no
+// result (the per-lane form of the packet's max(bt) cull). The float stack
+// doubles the thread's local stack memory, from 768 to 1,536 bytes at
+// TRT_MAX_STACK 192 (local memory, L1-cached; 196 KB per 128-thread block
+// at most, reached only by the deepest trees).
 //
 // The slot tests copy the JAX arithmetic operation for operation (the slot
 // test and repl rule shared with the other walks live in slot_test.cuh); this
@@ -51,11 +70,25 @@ struct TraceParams {
   const float* ps;    // (8, ps_cols) packed leaf payload
   long long ps_cols;
   float* out;         // (9, R) closest / (2, R) occlusion
-  int R;
+  const float* md;    // (ceil(R / tile), 3) packet direction sums (ORDERED)
+  int R, tile;
   float t_min, graze, eps1;  // eps1 = float(1 + tie_eps)
 };
 
-template <bool OCCL, bool ATTRS>
+// one compare-exchange of _SORT8 (pallas_trace.py:414-421): descending by
+// key, strict <, the keep flag and entry riding along
+__device__ __forceinline__ void cex(float& ka, float& kb, int& ma, int& mb,
+                                    bool& pa, bool& pb, float& ea,
+                                    float& eb) {
+  const bool sw = ka < kb;
+  const float k = sw ? kb : ka, e = sw ? eb : ea;
+  const int m = sw ? mb : ma;
+  const bool q = sw ? pb : pa;
+  kb = sw ? ka : kb; mb = sw ? ma : mb; pb = sw ? pa : pb; eb = sw ? ea : eb;
+  ka = k; ma = m; pa = q; ea = e;
+}
+
+template <bool OCCL, bool ATTRS, bool ORDERED>
 __global__ void __launch_bounds__(128) trace_kernel(TraceParams p) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= p.R) return;
@@ -85,11 +118,70 @@ __global__ void __launch_bounds__(128) trace_kernel(TraceParams p) {
   const float* __restrict__ ps = p.ps;
   const long long cols = p.ps_cols;
 
+  float md0 = 0.f, md1 = 0.f, md2 = 0.f;
+  if (ORDERED) {
+    const float* md = p.md + 3 * (i / p.tile);
+    md0 = md[0]; md1 = md[1]; md2 = md[2];
+  }
+
   int stack[TRT_MAX_STACK];
+  float tstack[ORDERED ? TRT_MAX_STACK : 1];  // entry distance per push
   int sp = 1;
   stack[0] = 0;  // root wide node
+  tstack[0] = 0.f;
   while (sp > 0) {
     const int m = stack[--sp];
+    // pop-time cull: nothing in the node lies nearer than its entry
+    if (ORDERED && tstack[sp] > bt * p.eps1) continue;
+    if (ORDERED && m >= 0) {
+      // interior, near-first: key the children this ray keeps, sort them
+      // descending, push far first so the nearest pops next
+      const float* __restrict__ row = p.wn + (long long)m * 128;
+      const float bte = bt * p.eps1;
+      float key[8], ent[8];
+      int meta[8];
+      bool keep[8];
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const float* ch = row + c * 8;
+        const float mf = __ldg(ch + 6);
+        meta[c] = (int)mf;
+        key[c] = 3.0e38f;
+        ent[c] = 0.f;
+        keep[c] = false;
+        if (mf == -1.0f) continue;                       // empty slot
+        const float x0 = __ldg(ch + 0), y0 = __ldg(ch + 1), z0 = __ldg(ch + 2);
+        const float x1 = __ldg(ch + 3), y1 = __ldg(ch + 4), z1 = __ldg(ch + 5);
+        const float t_ax = x0 * invx - oix, t_bx = x1 * invx - oix;
+        const float t_ay = y0 * invy - oiy, t_by = y1 * invy - oiy;
+        const float t_az = z0 * invz - oiz, t_bz = z1 * invz - oiz;
+        const float t0 = fmaxf(fmaxf(fminf(t_ax, t_bx), fminf(t_ay, t_by)),
+                               fminf(t_az, t_bz));
+        const float t1 = fminf(fminf(fmaxf(t_ax, t_bx), fmaxf(t_ay, t_by)),
+                               fmaxf(t_az, t_bz));
+        const float dist = t0 > 0.f ? t0 : t1;
+        keep[c] = (t1 >= t0) && (dist > 0.f) && (fmaxf(t0, 0.f) <= bte);
+        if (keep[c])
+          key[c] = (x0 + x1) * md0 + (y0 + y1) * md1 + (z0 + z1) * md2;
+        ent[c] = fmaxf(t0, 0.f);
+      }
+#define CEX(a, b) \
+  cex(key[a], key[b], meta[a], meta[b], keep[a], keep[b], ent[a], ent[b])
+      CEX(0, 1); CEX(2, 3); CEX(4, 5); CEX(6, 7); CEX(0, 2); CEX(1, 3);
+      CEX(4, 6); CEX(5, 7); CEX(1, 2); CEX(5, 6); CEX(0, 4); CEX(1, 5);
+      CEX(2, 6); CEX(3, 7); CEX(2, 4); CEX(3, 5); CEX(1, 2); CEX(3, 4);
+      CEX(5, 6);
+#undef CEX
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        if (keep[c]) {
+          stack[sp] = meta[c];
+          tstack[sp] = ent[c];
+          ++sp;
+        }
+      }
+      continue;
+    }
     if (m >= 0) {
       // interior: slab-test the 8 children against this ray's current bt
       const float* __restrict__ row = p.wn + (long long)m * 128;
@@ -190,21 +282,83 @@ __global__ void __launch_bounds__(128) trace_kernel(TraceParams p) {
   }
 }
 
+// _mean_dir (pallas_trace.py:376) as XLA's CPU backend adds it: a packet's
+// (rows, 128) block in windows of min(rows, 32) rows by 32 lanes, each
+// summed row-major from 0, then the window sums in order from 0; rays past
+// R are zero padding. ops/trace.py::packet_dirs_plain is the same sum.
+// Bound by bytes (each direction float read once). One block per (packet,
+// axis): the block stages one row band (up to 32 rows x 128 lanes) in
+// shared memory with coalesced loads, then four threads run the four
+// windows' dependent add chains side by side (a window's 32-lane columns
+// sit 32 * wr + 1 floats apart, so the four read different banks), and
+// thread 0 adds the window sums in order.
+#define TRT_DIRS_BAND 32
+__global__ void __launch_bounds__(128) packet_dirs_kernel(
+    const float* __restrict__ rays, int R, int tile, float* __restrict__ md) {
+  __shared__ float buf[4 * (TRT_DIRS_BAND * 32 + 1)];
+  __shared__ float part[4];
+  const int pkt = blockIdx.x, axis = blockIdx.y;
+  const float* d = rays + (long long)(3 + axis) * R;
+  const int rows = tile / 128;
+  const int wr = rows < TRT_DIRS_BAND ? rows : TRT_DIRS_BAND;
+  const int rb = (rows + wr - 1) / wr, pitch = wr * 32 + 1;
+  const long long base = (long long)pkt * tile;
+  float tot = 0.f;
+  for (int b = 0; b < rb; ++b) {
+    for (int e = threadIdx.x; e < wr * 128; e += blockDim.x) {
+      const int r = e / 128, c = e % 128, row = b * wr + r;
+      const long long k = base + (long long)row * 128 + c;
+      buf[(c / 32) * pitch + r * 32 + c % 32] =
+          (row < rows && k < R) ? __ldg(d + k) : 0.f;
+    }
+    __syncthreads();
+    if (threadIdx.x < 4) {
+      const float* w = buf + threadIdx.x * pitch;
+      float acc = 0.f;
+      for (int j = 0; j < wr * 32; ++j) acc += w[j];
+      part[threadIdx.x] = acc;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) tot = (((tot + part[0]) + part[1]) + part[2]) + part[3];
+    __syncthreads();  // the next band overwrites buf
+  }
+  if (threadIdx.x == 0) md[3 * pkt + axis] = tot;
+}
+
+extern "C" int trt_packet_dirs(const float* rays, int R, int tile, float* md,
+                               void* stream) {
+  if (R <= 0) return 0;
+  if (tile <= 0 || tile % 128) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((R + tile - 1) / tile), 3), block(128);
+  packet_dirs_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(rays, R, tile,
+                                                               md);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int trt_max_stack() { return TRT_MAX_STACK; }
 
 // query: 0 closest hit with attributes, 1 closest hit without, 2 occlusion.
+// md: NULL for the preorder walk, else the (ceil(R / tile), 3) packet
+// direction sums of the near-first walk.
 // Returns cudaGetLastError() after the launch (0 = launched).
 extern "C" int trt_trace(const float* rays, const float* wn, const float* ps,
                          long long ps_cols, float* out, int R, int query,
-                         float t_min, float graze, float eps1, void* stream) {
+                         const float* md, int tile, float t_min, float graze,
+                         float eps1, void* stream) {
   if (R <= 0) return 0;
-  TraceParams p{rays, wn, ps, ps_cols, out, R, t_min, graze, eps1};
+  if (query < 0 || query > 2 || (md != nullptr && tile <= 0))
+    return (int)cudaErrorInvalidValue;
+  TraceParams p{rays, wn, ps, ps_cols, out, md, R, tile, t_min, graze, eps1};
   const dim3 block(128), grid((unsigned)((R + 127) / 128));
   cudaStream_t st = (cudaStream_t)stream;
-  switch (query) {
-    case 0: trace_kernel<false, true><<<grid, block, 0, st>>>(p); break;
-    case 1: trace_kernel<false, false><<<grid, block, 0, st>>>(p); break;
-    case 2: trace_kernel<true, false><<<grid, block, 0, st>>>(p); break;
+  const int q = query + (md != nullptr ? 3 : 0);
+  switch (q) {
+    case 0: trace_kernel<false, true, false><<<grid, block, 0, st>>>(p); break;
+    case 1: trace_kernel<false, false, false><<<grid, block, 0, st>>>(p); break;
+    case 2: trace_kernel<true, false, false><<<grid, block, 0, st>>>(p); break;
+    case 3: trace_kernel<false, true, true><<<grid, block, 0, st>>>(p); break;
+    case 4: trace_kernel<false, false, true><<<grid, block, 0, st>>>(p); break;
+    case 5: trace_kernel<true, false, true><<<grid, block, 0, st>>>(p); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

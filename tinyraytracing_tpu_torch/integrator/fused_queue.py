@@ -16,10 +16,20 @@ stock tensor ops: the MXU prefix sum ``torch.cumsum``, the broadcast-key
 plane sort a stable ``torch.sort`` plus gathers, and the drop-mode
 scatter-add an ``index_add_`` into an ``n_pix + 1`` buffer (CUDA atomics:
 pixel sums may differ from a CPU run in float-add order only).
+
+``render_fused_queue_chunked`` runs the same loop in chunks of iterations
+sized to a wall-time target, carrying the whole lane state between them,
+and can snapshot that state to disk and resume from it
+(``utils/checkpoint.py``). A chunk boundary changes no arithmetic, so on
+the CPU a chunked or resumed render is bitwise the one-shot render (on
+the card, up to the atomics' float-add order).
 """
 
 from __future__ import annotations
 
+import time
+
+import numpy as np
 import torch
 
 from tinyraytracing_tpu_torch.config import (
@@ -35,12 +45,13 @@ from tinyraytracing_tpu_torch.integrator.fused import (
     _material_planes,
     _nee_geometry,
     _tex_kd,
+    camera_rays,
     pixel_tile_order,
     sample_bsdf_planar,
 )
-from tinyraytracing_tpu_torch.models.camera import Camera, camera_basis
+from tinyraytracing_tpu_torch.models.camera import Camera
 from tinyraytracing_tpu_torch.ops import vec
-from tinyraytracing_tpu_torch.ops.rng import bits_to_uniform, bounce_uniforms, path_keys
+from tinyraytracing_tpu_torch.ops.rng import bounce_uniforms
 from tinyraytracing_tpu_torch.ops.trace import (
     fused_trace_planes,
     occlusion_trace_segmented,
@@ -48,6 +59,11 @@ from tinyraytracing_tpu_torch.ops.trace import (
 
 _INF = 3.0e38
 _KEY_MAX = 2**31 - 1
+# the lane state's fields, in the order a snapshot stores them (a tuple
+# field stores one array per component)
+STATE_LAYOUT = ("it", "counter", "active", "path_id", "pix", "bounce",
+                ("o", 3), ("d", 3), "ray_type", ("thr", 3), ("rad", 3),
+                ("pkd", 2), "img", "ray_count")
 
 
 def _morton_key(o, aabb_lo, aabb_inv, cells: int):
@@ -69,15 +85,13 @@ def _morton_key(o, aabb_lo, aabb_inv, cells: int):
     return spread(q(0)) | (spread(q(1)) << 1) | (spread(q(2)) << 2)
 
 
-def render_fused_queue(scene, cam: Camera, key, config: RenderConfig,
-                       spp: int, lanes: int = 262144,
-                       max_iters: int | None = None):
-    """Render with the queue-fed fused wavefront on ``scene``'s device.
-
-    ``key`` is the (2,) master key words (``ops.rng.master_key_data``).
-    Returns ((n_pix, 3) float32 linear image in PIXEL order, traced-ray
-    count as a float32 0-d tensor). Requires scene.bvh with packed leaves.
-    """
+def _queue_setup(scene, cam: Camera, key, config: RenderConfig, spp: int,
+                 lanes: int, max_iters: int | None = None):
+    """The queue loop of one render: returns (max_iters, init_state,
+    more, body) — the initial lane state (a dict of tensors, plus the
+    iteration and queue counters as ints), the loop's condition and one
+    iteration. Shared by the one-shot and the chunked renderer, so both
+    run the same body. An explicit ``max_iters`` replaces the default."""
     check_ported(config)
     dev = scene.device
     f32, i64 = torch.float32, torch.int64
@@ -93,57 +107,64 @@ def render_fused_queue(scene, cam: Camera, key, config: RenderConfig,
         ) + config.max_depth + 9
 
     order = torch.as_tensor(pixel_tile_order(W, H)[0], dtype=i64, device=dev)
-    eye, horizontal, vertical, llc = (
-        tuple(float(x) for x in v.tolist()) for v in camera_basis(cam))
+    start_ray = camera_rays(cam, key, dev)
     inv_spp = c(1.0 / spp)
     L = scene.light_mtl.shape[0]
     light_mtl_f = [scene.light_mtl[l].to(f32) for l in range(L)]
-    # auto (-1) never resorts: on an H100 the every-iteration morton resort
-    # that the JAX package picks for big trees left the closest-hit kernel's
-    # time on grid:100000 unchanged and added ~100 launches per iteration
-    # (PERF.md, Findings)
-    resort_every = max(config.queue_resort_every, 0)
+    # auto (-1) never resorts under preorder: on an H100 the every-iteration
+    # morton resort that the JAX package picks for big trees left the
+    # closest-hit kernel's time on grid:100000 unchanged and added ~100
+    # launches per iteration (PERF.md, Findings). Under the near-first walk
+    # the packets are part of the result, so auto is the JAX package's
+    # rule (its fused_queue._queue_setup).
+    resort_every = config.queue_resort_every
     resort_key = config.queue_resort_key
+    if resort_every < 0:
+        resort_every = 0
+        if config.walk_order == "near" and scene.num_triangles >= 10_000:
+            resort_key = "morton"
+            resort_every = 1 if scene.bvh.packed.n_wide > 512 else 2
     aabb_lo = scene.bvh.nmin[0]
     aabb_inv = 1.0 / torch.clamp_min(scene.bvh.nmax[0] - scene.bvh.nmin[0],
                                      1e-6)
 
-    c_w1, c_w, c_h1, c_h = c(W - 1.0), c(float(W)), c(H - 1.0), c(float(H))
-
     def camera_ray(path_id):
         pix = order[torch.clamp(path_id // spp, 0, n_pix - 1)]
-        i = (pix // W).to(f32)
-        j = (pix % W).to(f32)
-        pk0, pk1 = path_keys(key, path_id)
-        h1 = bits_to_uniform(pk0)
-        h2 = bits_to_uniform(pk1)
-        x = j / c_w1 + (h1 - 0.5) / c_w
-        y = (H - i) / c_h1 + (h2 - 0.5) / c_h
-        d = tuple(llc[k] + x * horizontal[k] + y * vertical[k] - eye[k]
-                  for k in range(3))
-        d = vec.normalize(d)
-        return vec.splat(eye, d[0]), d, (pk0, pk1), pix
+        return (*start_ray(pix, path_id), pix)
 
     zero = torch.zeros(R, dtype=f32, device=dev)
     one = torch.ones(R, dtype=f32, device=dev)
     up = vec.splat((0.0, 0.0, 1.0), zero)
     far3 = vec.splat((_FAR, _FAR, _FAR), zero)
-    # lane state (the JAX init_state)
-    it, counter = 0, 0
-    active = torch.zeros(R, dtype=torch.bool, device=dev)
-    path_id = torch.zeros(R, dtype=i64, device=dev)
-    pix = torch.zeros(R, dtype=i64, device=dev)
-    bounce = torch.zeros(R, dtype=i64, device=dev)
-    o = (zero, zero, zero)
-    d = up
-    ray_type = torch.full((R,), CAMERA, dtype=i64, device=dev)
-    thr = (one, one, one)
-    rad = (zero, zero, zero)
-    pkd = (torch.zeros(R, dtype=i64, device=dev),) * 2
-    img = torch.zeros((3, n_pix + 1), dtype=f32, device=dev)  # +1: drop slot
-    ray_count = zero
 
-    while it < max_iters and (counter < n_paths or bool(active.any())):
+    def init_state():
+        """The lane state before the first iteration (JAX init_state)."""
+        return dict(
+            it=0, counter=0,
+            active=torch.zeros(R, dtype=torch.bool, device=dev),
+            path_id=torch.zeros(R, dtype=i64, device=dev),
+            pix=torch.zeros(R, dtype=i64, device=dev),
+            bounce=torch.zeros(R, dtype=i64, device=dev),
+            o=(zero, zero, zero), d=up,
+            ray_type=torch.full((R,), CAMERA, dtype=i64, device=dev),
+            thr=(one, one, one), rad=(zero, zero, zero),
+            pkd=(torch.zeros(R, dtype=i64, device=dev),) * 2,
+            img=torch.zeros((3, n_pix + 1), dtype=f32, device=dev),  # +1: drop
+            ray_count=zero,
+        )
+
+    def more(s):
+        return s["it"] < max_iters and (s["counter"] < n_paths
+                                        or bool(s["active"].any()))
+
+    def body(s):
+        """One iteration: the lane state after it (``img`` is updated in
+        place)."""
+        it, counter, active = s["it"], s["counter"], s["active"]
+        path_id, pix, bounce = s["path_id"], s["pix"], s["bounce"]
+        o, d, ray_type = s["o"], s["d"], s["ray_type"]
+        thr, rad, pkd = s["thr"], s["rad"], s["pkd"]
+        img, ray_count = s["img"], s["ray_count"]
         # --- optional periodic resort (config.queue_resort_every)
         if resort_every > 0 and it % resort_every == 0:
             if resort_key == "morton":
@@ -295,9 +316,151 @@ def render_fused_queue(scene, cam: Camera, key, config: RenderConfig,
         img.index_add_(1, spix, torch.stack(
             [torch.where(finished, rad[k] * inv_spp, zero) for k in range(3)]))
         active = alive_next
-        it += 1
+        return dict(it=it + 1, counter=counter, active=active,
+                    path_id=path_id, pix=pix, bounce=bounce, o=o, d=d,
+                    ray_type=ray_type, thr=thr, rad=rad, pkd=pkd, img=img,
+                    ray_count=ray_count)
 
-    return img[:, :n_pix].T.contiguous(), torch.sum(ray_count)
+    return max_iters, init_state, more, body
+
+
+def _result(s, n_pix: int):
+    """((n_pix, 3) image in pixel order, traced-ray count) of a state."""
+    return s["img"][:, :n_pix].T.contiguous(), torch.sum(s["ray_count"])
+
+
+def render_fused_queue(scene, cam: Camera, key, config: RenderConfig,
+                       spp: int, lanes: int = 262144,
+                       max_iters: int | None = None):
+    """Render with the queue-fed fused wavefront on ``scene``'s device.
+
+    ``key`` is the (2,) master key words (``ops.rng.master_key_data``).
+    Returns ((n_pix, 3) float32 linear image in PIXEL order, traced-ray
+    count as a float32 0-d tensor). Requires scene.bvh with packed leaves.
+    """
+    _, init_state, more, body = _queue_setup(scene, cam, key, config, spp,
+                                             lanes, max_iters)
+    s = init_state()
+    while more(s):
+        s = body(s)
+    return _result(s, cam.width * cam.height)
+
+
+def _snapshot_meta(scene, cam, key, config, spp, lanes):
+    """What a snapshot is bound to: any difference starts afresh."""
+    from tinyraytracing_tpu_torch.utils import checkpoint as ckpt
+
+    return dict(spp=spp, lanes=lanes, W=cam.width, H=cam.height,
+                key=np.asarray(key, dtype=np.int64), config=repr(config),
+                scene_tris=scene.num_triangles,
+                scene_vsum=ckpt.scene_checksum(scene),
+                state_version=ckpt.QUEUE_STATE_VERSION,
+                state_layout=repr(STATE_LAYOUT))
+
+
+def render_fused_queue_chunked(
+    scene,
+    cam: Camera,
+    key,
+    config: RenderConfig,
+    spp: int,
+    lanes: int = 262144,
+    target_chunk_s: float = 8.0,
+    checkpoint_path: str | None = None,
+    checkpoint_every_s: float = 120.0,
+    resume: bool = False,
+    progress=None,
+):
+    """The queue render in chunks of iterations, each sized to take about
+    ``target_chunk_s`` (the JAX package's ``render_fused_queue_chunked``).
+    Returns what ``render_fused_queue`` returns; on the CPU bitwise the
+    same, on the card up to the scatter's float-add order.
+
+    With ``checkpoint_path`` the lane state is saved every
+    ``checkpoint_every_s`` (between chunks) and removed when the render
+    ends; ``resume=True`` starts from the snapshot there, if any. The
+    snapshot is bound to the key, the whole config, the scene (triangle
+    count and checksum), spp, lanes, the image size and the state layout:
+    any difference, or a snapshot of another layout (the JAX package's
+    included), starts the render afresh. ``progress(it=, counter=,
+    seconds=)`` is called after every chunk.
+    """
+    from tinyraytracing_tpu_torch.utils import checkpoint as ckpt
+
+    max_iters, init_state, more, body = _queue_setup(scene, cam, key, config,
+                                                     spp, lanes)
+    s = init_state()
+    meta = _snapshot_meta(scene, cam, key, config, spp, lanes)
+    if resume and checkpoint_path:
+        leaves = ckpt.load_queue_state(checkpoint_path, meta)
+        if leaves is not None:
+            s = _unflatten(leaves, s)
+    chunk = 4
+    last_ckpt = time.perf_counter()
+    while True:
+        t0 = time.perf_counter()
+        it0 = s["it"]
+        while more(s) and s["it"] < it0 + chunk:
+            s = body(s)
+        did = s["it"] - it0
+        dt = time.perf_counter() - t0
+        if progress is not None:
+            progress(it=s["it"], counter=s["counter"], seconds=dt)
+        if did < chunk or s["it"] >= max_iters:
+            break
+        # the next chunk sized to the wall-time target, growth-capped so a
+        # slow first chunk (kernel builds) cannot overshoot
+        per = dt / max(did, 1)
+        chunk = max(1, min(chunk * 4, int(target_chunk_s / max(per, 1e-4))))
+        if checkpoint_path and (time.perf_counter() - last_ckpt
+                                >= checkpoint_every_s):
+            ckpt.save_queue_state(checkpoint_path, _flatten(s), meta)
+            last_ckpt = time.perf_counter()
+    if checkpoint_path:
+        ckpt.clear_queue_state(checkpoint_path)
+    return _result(s, cam.width * cam.height)
+
+
+def _flatten(s):
+    """The state as numpy arrays in STATE_LAYOUT order."""
+    out = []
+    for field in STATE_LAYOUT:
+        if isinstance(field, tuple):
+            out += [x.cpu().numpy() for x in s[field[0]]]
+        elif isinstance(s[field], int):
+            out.append(np.int64(s[field]))
+        else:
+            out.append(s[field].cpu().numpy())
+    return out
+
+
+def _unflatten(leaves, like):
+    """A state from ``_flatten``'s arrays, on ``like``'s devices, or
+    ``like`` itself when the arrays do not fit its layout."""
+    n = sum(f[1] if isinstance(f, tuple) else 1 for f in STATE_LAYOUT)
+    if len(leaves) != n:
+        return like
+    s, k = {}, 0
+    for field in STATE_LAYOUT:
+        if isinstance(field, tuple):
+            name, m = field
+            ref = like[name]
+            vals = leaves[k:k + m]
+            k += m
+            if any(v.shape != r.shape for v, r in zip(vals, ref)):
+                return like
+            s[name] = tuple(torch.from_numpy(v).to(r.device)
+                            for v, r in zip(vals, ref))
+            continue
+        v = leaves[k]
+        k += 1
+        if isinstance(like[field], int):
+            s[field] = int(v)
+        elif v.shape != tuple(like[field].shape):
+            return like
+        else:
+            s[field] = torch.from_numpy(v).to(like[field].device)
+    return s
 
 
 def render_fused_queue_image(scene, cam: Camera, key, config: RenderConfig,

@@ -261,7 +261,7 @@ def assemble_scene(
     materials: dict[str, MaterialSpec],
     basedir: str = "",
     bvh_host: tuple | None = None,
-    device="cpu",
+    device="cuda",
 ) -> Scene:
     """Build a Scene from parsed host data (the JAX package's
     ``assemble_scene``, step for step).

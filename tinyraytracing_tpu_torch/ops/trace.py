@@ -1,12 +1,14 @@
 """Fused closest-hit / occlusion trace over the packed 8-wide BVH — the
 counterpart of ``tinyraytracing_tpu/ops/pallas_trace.py``.
 
-Two hand-written CUDA kernels (``csrc/trace.cu``, one thread per ray)
-replace the Pallas kernels reached from ``pallas_trace.fused_trace_planes``
+Hand-written CUDA kernels (``csrc/trace.cu``, one thread per ray) replace
+the Pallas kernels reached from ``pallas_trace.fused_trace_planes``
 (closest hit: ``_kernel_wide_*``/``_kernel_smem*``/``_kernel_hbm`` with the
 slot loop ``_leaf_slots.run_slots``; occlusion: the same with
-``run_slots_occl``). The source note in ``trace.cu`` says what bounds them
-on an H100 and what the design does about it.
+``run_slots_occl``; and both under ``walk_order="near"``, the near-first
+child order of ``_interior_push`` with pop-time culling). The source note
+in ``trace.cu`` says what bounds them on an H100 and what the design does
+about it.
 
 Beside the kernels lives their plain PyTorch version, ``trace_plain``: the
 same per-ray wide walk, vectorised over rays with an (R, S) stack tensor,
@@ -19,6 +21,23 @@ t >= t_min and |n.d| >= graze, the tie-banded emissive tie-break, the
 target-material early kill (t = -1, mtl = -3), barycentric shading
 normal / texcoord interpolated at the hit, and the 2-plane any-hit
 occlusion query (bt, seen).
+
+The near-first walk. The JAX kernel walks one PACKET of ``tile``
+consecutive rays with one stack, and under ``walk_order="near"`` pushes
+the children the packet keeps in descending order of a key along the
+packet's summed direction (``_mean_dir``), so pops visit near children
+first. The port keeps one walk per ray and gives each ray its packet's
+key: ``walk_packets`` groups the dispatched rays as the JAX kernel does
+and sums their directions once, in XLA's order (``packet_dirs``), and
+the kernel and the plain version sort each ray's kept children by that
+key with the same 19-exchange network. A ray then meets its leaves in
+the packet walk's order, except where two of its children's keys tie:
+the network is not stable and the packet keeps more children than the
+ray, so equal keys can come out in another order (and XLA's CPU backend
+may contract a key's products into FMAs, moving it by an ulp). Such a
+swap can move a result only inside the tie band. Where the JAX kernel
+walks the binary tree (``bvh_walk``, tree size and query decide), it
+ignores ``walk_order``, and so does the port.
 """
 
 from __future__ import annotations
@@ -27,14 +46,31 @@ import ctypes
 
 import torch
 
-from tinyraytracing_tpu_torch.config import RenderConfig, check_ported
+from tinyraytracing_tpu_torch.config import RenderConfig
 from tinyraytracing_tpu_torch.ops.slot_test import SLOT, slot_replaces, woop_slot_test
 
 _INF = 3.0e38
 N_OUT = 9          # t, pn xyz, tc uv, mtl, em, slot
+# the JAX kernel's walk and packet choices
+# (tinyraytracing_tpu/ops/pallas_trace.py:76-90 and :1036-1051)
+RAY_TILE = 4096
+RAY_TILE_BIG = 1024
+WIDE_TILE_LIMIT = 1024
+SMEM_NODE_LIMIT = 1024
+# _SORT8 (pallas_trace.py:371): Batcher's odd-even merge network, 19
+# compare-exchanges; csrc/trace.cu runs the same list
+SORT8 = ((0, 1), (2, 3), (4, 5), (6, 7), (0, 2), (1, 3), (4, 6), (5, 7),
+         (1, 2), (5, 6), (0, 4), (1, 5), (2, 6), (3, 7), (2, 4), (3, 5),
+         (1, 2), (3, 4), (5, 6))
+# float operations of one near-first key (3 adds of box bounds, 3 products,
+# 2 adds), computed for each child a ray keeps
+KEY_FLOPS = 8
 
 # kernel launches per wrapper; each wrapper adds one where it launches
-LAUNCHES = {"trace_closest": 0, "trace_occlusion": 0}
+# ("trace_near": the near-first walk, either query; "packet_dirs": its
+# packets' direction sums)
+LAUNCHES = {"trace_closest": 0, "trace_occlusion": 0, "trace_near": 0,
+            "packet_dirs": 0}
 
 
 def reset_launch_counts() -> None:
@@ -48,22 +84,120 @@ def stack_size(pk) -> int:
     return max(64, pk.wide_depth * 7 + 16)
 
 
+def near_tile(pk, config: RenderConfig, occl: bool) -> int:
+    """The packet size of the near-first walk for one dispatch, or 0 where
+    the JAX kernel would walk preorder: ``walk_order`` other than "near",
+    or the binary walk (``bvh_walk`` "binary", or "auto" on a tree of at
+    most SMEM_NODE_LIMIT binary nodes for a closest-hit query), which
+    ignores the order. The size is the JAX kernel's: ``ray_tile`` if set,
+    else 2048 (leaves <= 8) or RAY_TILE_BIG on wide trees of more than
+    WIDE_TILE_LIMIT rows, else RAY_TILE."""
+    if config.walk_order != "near" or pk.n_wide == 0:
+        return 0
+    if not (config.bvh_walk == "wide" or (
+            config.bvh_walk == "auto"
+            and (pk.n_nodes > SMEM_NODE_LIMIT or occl))):
+        return 0
+    if config.ray_tile:
+        return config.ray_tile
+    if pk.n_wide > WIDE_TILE_LIMIT:
+        return 2048 if pk.leaf_size <= 8 else RAY_TILE_BIG
+    return RAY_TILE
+
+
+def packet_dirs_plain(rays: torch.Tensor, tile: int) -> torch.Tensor:
+    """(n_packets, 3) float32: the summed direction (dx, dy, dz) of each
+    packet of ``tile`` consecutive rays of the (8, R) ``rays``, the last
+    packet zero-padded — ``_mean_dir`` over the JAX kernel's packets,
+    parked lanes included, added in XLA's CPU order: a packet is a
+    (tile/128, 128) block, cut into windows of min(rows, 32) rows by 32
+    lanes, each window summed row-major from 0, then the window sums in
+    order from 0 (exact for packets of up to 4096 rays, the JAX kernel's
+    sizes; for taller packets XLA's last step adds in another order)."""
+    if tile <= 0 or tile % 128:
+        raise ValueError(f"packets hold a multiple of 128 rays, got {tile}")
+    R = rays.shape[1]
+    n = -(-R // tile)
+    rows = tile // 128
+    wr = min(rows, 32)
+    rb = -(-rows // wr)
+    d = torch.nn.functional.pad(rays[3:6], (0, n * tile - R)).reshape(
+        3, n, rows, 128)
+    d = torch.nn.functional.pad(d, (0, 0, 0, rb * wr - rows))
+    win = d.reshape(3, n, rb, wr, 4, 32).permute(0, 1, 2, 4, 3, 5).reshape(
+        3, n, rb * 4, wr * 32)
+    acc = torch.zeros(win.shape[:3], dtype=torch.float32, device=rays.device)
+    for k in range(wr * 32):
+        acc = acc + win[..., k]
+    tot = torch.zeros((3, n), dtype=torch.float32, device=rays.device)
+    for j in range(rb * 4):
+        tot = tot + acc[..., j]
+    return tot.T.contiguous()
+
+
+def packet_dirs_kernel(rays: torch.Tensor, tile: int) -> torch.Tensor:
+    """Launch the CUDA kernel of ``packet_dirs_plain`` (one block per
+    packet and axis, the same additions in the same order)."""
+    if not rays.is_cuda:
+        raise ValueError("packet_dirs_kernel needs CUDA tensors")
+    if (rays.dtype != torch.float32 or not rays.is_contiguous()
+            or rays.dim() != 2 or rays.shape[0] != 8):
+        raise ValueError("rays must be contiguous float32 (8, R)")
+    if tile <= 0 or tile % 128:
+        raise ValueError(f"packets hold a multiple of 128 rays, got {tile}")
+    R = rays.shape[1]
+    md = torch.empty((-(-R // tile), 3), dtype=torch.float32,
+                     device=rays.device)
+    with torch.cuda.device(rays.device):
+        err = _lib().trt_packet_dirs(
+            rays.data_ptr(), R, tile, md.data_ptr(),
+            torch.cuda.current_stream(rays.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"packet_dirs kernel launch failed: cudaError {err}")
+    LAUNCHES["packet_dirs"] += 1
+    return md
+
+
+def packet_dirs(rays: torch.Tensor, tile: int) -> torch.Tensor:
+    """``packet_dirs_plain``'s result: the kernel on a CUDA tensor, the
+    plain version on a CPU one."""
+    if rays.is_cuda:
+        return packet_dirs_kernel(rays, tile)
+    if rays.device.type == "cpu":
+        return packet_dirs_plain(rays, tile)
+    raise ValueError(f"no packet_dirs implementation for device {rays.device}")
+
+
+def walk_packets(pk, rays: torch.Tensor, config: RenderConfig, occl: bool):
+    """(tile, packet directions) selecting the near-first walk for this
+    dispatch, or (0, None) for the preorder walk. Computed once per
+    dispatch and handed to the kernel or the plain version alike."""
+    tile = near_tile(pk, config, occl)
+    return (tile, packet_dirs(rays, tile)) if tile else (0, None)
+
+
 # ---------------------------------------------------------------------------
 # plain PyTorch version of the per-ray wide walk
 # ---------------------------------------------------------------------------
 
 def trace_plain(pk, rays: torch.Tensor, config: RenderConfig, *,
-                attrs: bool = True, occl: bool = False,
+                attrs: bool = True, occl: bool = False, tile: int = 0,
+                md: torch.Tensor | None = None,
                 stats: dict | None = None) -> torch.Tensor:
     """Reference walk on any device. ``rays`` is (8, R) float32 (o xyz,
     d xyz, t_bound, target_mtl); returns (9, R) closest-hit planes or
     (2, R) occlusion planes (bt, seen), exactly what the kernel writes.
+    With ``md`` (``walk_packets``) the walk is near-first: ray i sorts the
+    children it keeps by their box centres' projection on md[i // tile]
+    and skips a popped node whose entry distance exceeds its bound.
     ``stats`` (if given) gains "node_visits" (child slab tests),
     "slot_tests" (occupied slots of the leaves popped), as the kernel runs
-    them up to its early exit after a kill, and "scene_bytes" (the WN and
-    PS floats the kernel reads, each counted once: the rows it pops, the
-    P attributes of the slots it tests, a slot's material only where it
-    may replace or kill, its shading attributes only where it replaces)."""
+    them up to its early exit after a kill, "near_keys" and "near_sorts"
+    (the near-first walk's keys and 19-exchange sorts), and "scene_bytes"
+    (the WN and PS floats the kernel reads, each counted once: the rows it
+    pops, the P attributes of the slots it tests, a slot's material only
+    where it may replace or kill, its shading attributes only where it
+    replaces)."""
     f32 = torch.float32
     dev = rays.device
     R = rays.shape[1]
@@ -93,10 +227,17 @@ def trace_plain(pk, rays: torch.Tensor, config: RenderConfig, *,
     S = stack_size(pk)
     stack = torch.zeros((R, S), dtype=torch.int32, device=dev)
     sp = torch.ones(R, dtype=torch.int64, device=dev)
+    ordered = md is not None
+    if ordered:
+        # entry distance of each pushed node (the root's is 0)
+        tstack = torch.zeros((R, S), dtype=f32, device=dev)
+        pmd = md[torch.arange(R, device=dev) // tile]        # (R, 3)
     WN, PS = pk.WN, pk.PS
     lane_off = torch.arange(4, device=dev) * SLOT
     visits = torch.zeros((), dtype=torch.int64, device=dev)
     slots = torch.zeros((), dtype=torch.int64, device=dev)
+    keys = torch.zeros((), dtype=torch.int64, device=dev)
+    sorts = torch.zeros((), dtype=torch.int64, device=dev)
     # what the kernel reads, for the bound: wide rows popped, and per slot
     # its P attributes, its material and its shading attributes
     if stats is not None:
@@ -111,6 +252,11 @@ def trace_plain(pk, rays: torch.Tensor, config: RenderConfig, *,
             break
         sp[act] -= 1
         m = stack[act, sp[act]].to(torch.int64)
+        if ordered:
+            # pop-time cull: every hit in the node lies at t >= its entry,
+            # so past bt*(1+tie_eps) it can neither replace nor kill
+            fresh = tstack[act, sp[act]] <= state[0, act] * eps1
+            act, m = act[fresh], m[fresh]
         is_leaf = m < 0
 
         # --- interior pops: slab-test the 8 children, push in reverse order
@@ -123,7 +269,8 @@ def trace_plain(pk, rays: torch.Tensor, config: RenderConfig, *,
             ix, iy, iz = invx[ia], invy[ia], invz[ia]
             ax_, ay_, az_ = oix[ia], oiy[ia], oiz[ia]
             spi = sp[ia]
-            for ch in range(7, -1, -1):
+            kids = []                    # (key, meta, keep, entry) per child
+            for ch in (range(8) if ordered else range(7, -1, -1)):
                 b = row[:, ch * 8: ch * 8 + 8]
                 meta = b[:, 6]
                 visits += ((meta != -1.0) & (state[0, ia] >= 0.0)).sum()
@@ -144,8 +291,32 @@ def trace_plain(pk, rays: torch.Tensor, config: RenderConfig, *,
                 dist = torch.where(t0 > 0.0, t0, t1)
                 keep = ((t1 >= t0) & (dist > 0.0)
                         & (torch.clamp_min(t0, 0.0) <= bte) & (meta != -1.0))
+                if ordered:
+                    m3 = pmd[ia]
+                    key = ((b[:, 0] + b[:, 3]) * m3[:, 0]
+                           + (b[:, 1] + b[:, 4]) * m3[:, 1]
+                           + (b[:, 2] + b[:, 5]) * m3[:, 2])
+                    kids.append([torch.where(keep, key, INF), meta, keep,
+                                 torch.clamp_min(t0, 0.0)])
+                    continue
                 k = torch.nonzero(keep).squeeze(1)
                 stack[ia[k], spi[k]] = meta[k].to(torch.int32)
+                spi = spi + keep
+            # near-first: descending keys (strict <, as _interior_push), so
+            # the nearest child is pushed last and popped first
+            if ordered:
+                live_ia = state[0, ia] >= 0.0
+                sorts += live_ia.sum()
+                keys += sum((kid[2] & live_ia).sum() for kid in kids)
+            for p, q in (SORT8 if ordered else ()):
+                sw = kids[p][0] < kids[q][0]
+                kids[p], kids[q] = (
+                    [torch.where(sw, y, x) for x, y in zip(kids[p], kids[q])],
+                    [torch.where(sw, x, y) for x, y in zip(kids[p], kids[q])])
+            for _, meta, keep, ent in kids:
+                k = torch.nonzero(keep).squeeze(1)
+                stack[ia[k], spi[k]] = meta[k].to(torch.int32)
+                tstack[ia[k], spi[k]] = ent[k]
                 spi = spi + keep
             sp[ia] = spi
 
@@ -207,6 +378,8 @@ def trace_plain(pk, rays: torch.Tensor, config: RenderConfig, *,
     if stats is not None:
         stats["node_visits"] = stats.get("node_visits", 0) + int(visits)
         stats["slot_tests"] = stats.get("slot_tests", 0) + int(slots)
+        stats["near_keys"] = stats.get("near_keys", 0) + int(keys)
+        stats["near_sorts"] = stats.get("near_sorts", 0) + int(sorts)
         # a row's 8 child metas, plus 6 box floats per occupied child; a
         # slot's 16 P attributes, its material, its 15 shading attributes
         occupied = (WN[seen["rows"]][:, 6::8] != -1.0).sum()
@@ -228,9 +401,12 @@ def _lib():
     if not getattr(lib, "_trt_typed", False):
         P = ctypes.c_void_p
         lib.trt_trace.argtypes = [P, P, P, ctypes.c_longlong, P, ctypes.c_int,
-                                  ctypes.c_int, ctypes.c_float, ctypes.c_float,
+                                  ctypes.c_int, P, ctypes.c_int,
+                                  ctypes.c_float, ctypes.c_float,
                                   ctypes.c_float, P]
         lib.trt_trace.restype = ctypes.c_int
+        lib.trt_packet_dirs.argtypes = [P, ctypes.c_int, ctypes.c_int, P, P]
+        lib.trt_packet_dirs.restype = ctypes.c_int
         lib.trt_max_stack.argtypes = []
         lib.trt_max_stack.restype = ctypes.c_int
         lib._trt_typed = True
@@ -238,12 +414,16 @@ def _lib():
 
 
 def trace_kernel(pk, rays: torch.Tensor, config: RenderConfig, *,
-                 attrs: bool = True, occl: bool = False) -> torch.Tensor:
+                 attrs: bool = True, occl: bool = False, tile: int = 0,
+                 md: torch.Tensor | None = None) -> torch.Tensor:
     """Launch the CUDA kernel on PyTorch's current stream; same contract as
     ``trace_plain``. Raises on a CPU tensor or a failed launch."""
     if not rays.is_cuda:
         raise ValueError("trace_kernel needs CUDA tensors")
-    for name, x in (("rays", rays), ("WN", pk.WN), ("PS", pk.PS)):
+    checked = [("rays", rays), ("WN", pk.WN), ("PS", pk.PS)]
+    if md is not None:
+        checked.append(("md", md))
+    for name, x in checked:
         if x.dtype != torch.float32 or not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous float32")
         if x.device != rays.device:
@@ -252,33 +432,43 @@ def trace_kernel(pk, rays: torch.Tensor, config: RenderConfig, *,
         raise ValueError(f"rays must be (8, R), got {tuple(rays.shape)}")
     if pk.WN.shape[1] != 128 or pk.PS.shape[0] != 8:
         raise ValueError("WN must be (n_wide, 128) and PS (8, cols)")
+    R = rays.shape[1]
+    if md is not None and (tile <= 0 or tuple(md.shape) != (-(-R // tile), 3)):
+        raise ValueError(f"md must be (ceil(R / tile), 3) with tile > 0, got "
+                         f"{tuple(md.shape)} for R={R}, tile={tile}")
     lib = _lib()
     need = pk.wide_depth * 7 + 1
     if need > lib.trt_max_stack():
         raise ValueError(f"BVH needs a {need}-entry stack; the kernel holds "
                          f"{lib.trt_max_stack()} (TRT_MAX_STACK in trace.cu)")
-    R = rays.shape[1]
     out = torch.empty((2 if occl else N_OUT, R), dtype=torch.float32,
                       device=rays.device)
     query = 2 if occl else (0 if attrs else 1)
     with torch.cuda.device(rays.device):
         err = lib.trt_trace(
             rays.data_ptr(), pk.WN.data_ptr(), pk.PS.data_ptr(),
-            pk.PS.shape[1], out.data_ptr(), R, query, config.t_min,
+            pk.PS.shape[1], out.data_ptr(), R, query,
+            None if md is None else md.data_ptr(), tile, config.t_min,
             config.n_dot_d_min, 1.0 + config.tie_eps,
             torch.cuda.current_stream(rays.device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"trace kernel launch failed: cudaError {err}")
-    LAUNCHES["trace_occlusion" if occl else "trace_closest"] += 1
+    if md is not None:
+        LAUNCHES["trace_near"] += 1
+    else:
+        LAUNCHES["trace_occlusion" if occl else "trace_closest"] += 1
     return out
 
 
 def _trace(pk, rays, config, attrs, occl):
+    tile, md = walk_packets(pk, rays, config, occl)
     if rays.is_cuda:
-        return trace_kernel(pk, rays, config, attrs=attrs, occl=occl)
+        return trace_kernel(pk, rays, config, attrs=attrs, occl=occl,
+                            tile=tile, md=md)
     if rays.device.type == "cpu":
-        return trace_plain(pk, rays, config, attrs=attrs, occl=occl)
+        return trace_plain(pk, rays, config, attrs=attrs, occl=occl,
+                           tile=tile, md=md)
     raise ValueError(f"no trace implementation for device {rays.device}")
 
 
@@ -297,9 +487,9 @@ def fused_trace_planes(scene, ox, oy, oz, dx, dy, dz, config: RenderConfig,
     attribute interpolation (pn/tc/slot keep their initial values).
     ``return_tri`` appends the hit triangle index as f32 (-1 miss/killed).
     ``query="occlusion"`` returns the two planes (bt, seen); visibility is
-    ``(seen > 0.5) & (bt >= 0)``.
+    ``(seen > 0.5) & (bt >= 0)``. ``config.walk_order``, ``bvh_walk`` and
+    ``ray_tile`` pick the walk and its packets (``walk_packets``).
     """
-    check_ported(config, ("walk_order",))
     if query not in ("closest", "occlusion"):
         raise ValueError(f"unknown query {query!r}")
     occl = query == "occlusion"
@@ -327,21 +517,30 @@ def fused_trace_planes(scene, ox, oy, oz, dx, dy, dz, config: RenderConfig,
 def occlusion_trace_segmented(scene, ox, oy, oz, dx, dy, dz, t_bound,
                               target_mtl, config: RenderConfig, n_seg: int):
     """Occlusion query over ``n_seg`` concatenated equal segments of shadow
-    lanes (one per light), with optional per-segment live-lane compaction
-    (config.shadow_compact "on"; "auto" is off: the one-thread-per-ray
-    kernel has no packet for parked lanes to dilute, and on an H100 the
-    compaction's two sorts cost more than the occlusion time they saved on
-    grid:100000 — PERF.md, Findings). Returns ONE
-    (n_seg * R,) f32 visibility plane: 1.0 where some target-material hit
-    lies within the tie band of the bound and no wrong-material hit
-    strictly inside occluded the lane; parked lanes (t_bound == 0) give 0.
+    lanes (one per light), with optional per-segment live-lane compaction.
+    Returns ONE (n_seg * R,) f32 visibility plane: 1.0 where some
+    target-material hit lies within the tie band of the bound and no
+    wrong-material hit strictly inside occluded the lane; parked lanes
+    (t_bound == 0) give 0.
+
+    ``config.shadow_compact``: "on" compacts; "auto" follows the JAX
+    package's rule (n_wide > 512) under ``walk_order="near"``, where the
+    packets are part of the result, and is off under preorder (the
+    one-thread-per-ray kernel has no packet for parked lanes to dilute,
+    and on an H100 the compaction's two sorts cost more than the
+    occlusion time they saved on grid:100000 — PERF.md, Findings).
 
     Compaction is a stable sort of each segment by "parked", the trace of
-    the sorted lanes, and the inverse sort; per-lane results do not depend
-    on lane order, so the visibility is bitwise the uncompacted one. The
+    the sorted lanes, and the inverse sort. Under preorder per-lane
+    results do not depend on lane order, so the visibility is bitwise the
+    uncompacted one; under near the sort regroups the packets and so
+    their keys, which can move a lane only inside the tie band. The
     segment's target material is re-broadcast from its live lanes (all
     live lanes of a segment target the same light)."""
-    compact = config.shadow_compact == "on"
+    n_wide = scene.bvh.packed.n_wide
+    compact = config.shadow_compact == "on" or (
+        config.shadow_compact == "auto" and config.walk_order == "near"
+        and n_wide > 512)
     vis = lambda bt, seen: ((seen > 0.5) & (bt >= 0.0)).to(torch.float32)
     if not compact or n_seg * 128 > ox.shape[0]:
         bt, seen = fused_trace_planes(

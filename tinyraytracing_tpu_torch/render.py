@@ -9,10 +9,9 @@ chunking is part of the sample stream, as in the JAX package: chunk i
 draws with ``fold_in(k_trace, i)``, the last chunk is padded with the
 first rays, and pass s uses ``fold_in(key, s)``.
 
-The queue-fed fused wavefront is ``integrator/fused_queue.py``. The
-persistent renderer and checkpointed renders raise
-``NotImplementedError`` naming their ROADMAP.md item instead of silently
-running something else.
+The fused renderers: the queue-fed wavefront
+(``integrator/fused_queue.py``, for scenes of 512 or more triangles) and
+the pixel-persistent one (``integrator/fused.py``, for smaller scenes).
 """
 
 from __future__ import annotations
@@ -23,7 +22,10 @@ import torch
 from tinyraytracing_tpu_torch.config import (
     DEFAULT_CONFIG, RenderConfig, check_ported,
 )
-from tinyraytracing_tpu_torch.integrator.fused_queue import render_fused_queue_image
+from tinyraytracing_tpu_torch.integrator.fused import render_fused_image
+from tinyraytracing_tpu_torch.integrator.fused_queue import (
+    render_fused_queue_chunked, render_fused_queue_image,
+)
 from tinyraytracing_tpu_torch.integrator.wavefront import trace
 from tinyraytracing_tpu_torch.io.image import write_png
 from tinyraytracing_tpu_torch.models.camera import Camera, generate_rays
@@ -33,11 +35,6 @@ from tinyraytracing_tpu_torch.ops.rng import fold_in, master_key_data, split
 # the queue pays a per-iteration scatter-add that dominates on tiny scenes;
 # the JAX package measured the switch point (its benchmarks/renderers_ab.py)
 _QUEUE_MIN_TRIS = 512
-
-_NOT_PORTED = {
-    "persistent": "the persistent renderer (ROADMAP.md, modules to port, "
-                  "item 1: integrator/fused.py::render_fused)",
-}
 
 
 def render_pass(scene: Scene, cam: Camera, key, config: RenderConfig):
@@ -91,33 +88,46 @@ def render_image(
     lanes: int = 262144,
     checkpoint_path: str | None = None,
     resume: bool = False,
+    progress=None,
 ) -> np.ndarray:
     """Render on the scene's device, pull to host, optionally write a PNG.
     Returns the linear (H, W, 3) numpy image. The seed gives the same
     sample streams as the JAX package's ``jax.random.PRNGKey(seed)``.
 
     ``renderer``: "auto" (by scene size), "queue" (queue-fed fused
-    wavefront), "scan" (fixed-depth wavefront, any ``config.intersector``)
-    or "persistent" (not ported yet)."""
+    wavefront), "persistent" (pixel-persistent fused wavefront) or "scan"
+    (fixed-depth wavefront, any ``config.intersector``). The fused
+    renderers attach a BVH when the scene has none. On the card the queue
+    renders in chunks (``render_fused_queue_chunked``), as the JAX package
+    renders it on an accelerator, and ``checkpoint_path`` / ``resume``
+    snapshot and resume its lane state; on the CPU it renders in one loop,
+    or in chunks when a checkpoint is asked for (the same image, bit for
+    bit). ``progress`` goes to the chunked driver. Other renderers ignore
+    the three."""
     check_ported(config)
-    if checkpoint_path is not None or resume:
-        raise NotImplementedError(
-            "checkpoint/resume is not ported yet (ROADMAP.md, modules to "
-            "port, item 2: the chunked queue loop)")
     spp_val = spp or config.spp
     if renderer == "auto":
         renderer = pick_renderer(scene)
-    if renderer in _NOT_PORTED:
-        raise NotImplementedError(f"{_NOT_PORTED[renderer]} is not ported yet")
     key = master_key_data(seed)
+    if renderer in ("persistent", "queue") and (
+            scene.bvh is None or scene.bvh.packed is None):
+        from tinyraytracing_tpu_torch.ops.bvh import attach_bvh
+
+        scene = attach_bvh(scene, config)
     if renderer == "scan":
         img = render(scene, cam, key, config, spp_val)
+    elif renderer == "persistent":
+        img = render_fused_image(scene, cam, key, config, spp_val, lanes)
     elif renderer == "queue":
-        if scene.bvh is None:
-            from tinyraytracing_tpu_torch.ops.bvh import attach_bvh
-
-            scene = attach_bvh(scene, config)
-        img = render_fused_queue_image(scene, cam, key, config, spp_val, lanes)
+        if scene.device.type == "cpu" and not (checkpoint_path or resume):
+            img = render_fused_queue_image(scene, cam, key, config, spp_val,
+                                           lanes)
+        else:
+            img, _ = render_fused_queue_chunked(
+                scene, cam, key, config, spp_val, lanes,
+                checkpoint_path=checkpoint_path, resume=resume,
+                progress=progress)
+            img = img.reshape(cam.height, cam.width, 3)
     else:
         raise ValueError(f"unknown renderer {renderer!r}")
     img = img.cpu().numpy()
