@@ -13,12 +13,23 @@ repository root:
 
 Needs one CUDA device and nvcc; exits non-zero on any failure (and without
 a result when there is no CUDA device). The last line of standard output
-is {"ok": true, "device": {...}}; the line before it lists the kernels.
+is {"ok": true, "device": {...}}; the line before it lists the kernels,
+each with its device time per launch (torch.profiler) and its
+host-inclusive time (CUDA events around back-to-back calls).
+
+Before and after a kernel's redesign, on one card in one call:
+
+    git archive <parent> | tar -x -C tmp_out/parent    # here, not on the card
+    python3 chip_smoke.py --compare tmp_out/parent --out tmp_out/compare.json
+
+times the redesigned kernels of the parent's package and of this tree in
+turns (parent, this, this, parent) and checks their outputs bitwise equal.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -56,7 +67,8 @@ def log(*a):
 
 def _events_ms(fn, runs):
     """Median milliseconds of ``fn()`` over ``runs`` timed runs (CUDA
-    events), after one warm-up run."""
+    events), after one warm-up run. For the plain versions, whose many
+    launches the host paces."""
     fn()
     times = []
     for _ in range(runs):
@@ -67,6 +79,57 @@ def _events_ms(fn, runs):
         torch.cuda.synchronize()
         times.append(e0.elapsed_time(e1))
     return statistics.median(times)
+
+
+def _host_ms(fn, n=20):
+    """Host-inclusive milliseconds per call: CUDA events around ``n``
+    back-to-back calls of ``fn()`` (the wrapper's checks, allocations and
+    launch included wherever they outlast the kernel), divided by n."""
+    fn()
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(n):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / n
+
+
+def _device_ms(fn, names=None, n=20):
+    """Device milliseconds per launch: the mean duration of the CUDA
+    kernels of ``n`` calls of ``fn()`` under torch.profiler (CUDA activity
+    only) whose name holds one of ``names`` (every kernel if None; then
+    ``fn`` must launch one kernel). The profiler may drop some kernel
+    records of a profiling window, so the mean is over the launches it
+    recorded, and the log says when that was fewer than n. Where it
+    recorded fewer than half, or no device time, CUDA events around
+    10 * n back-to-back calls stand in, and the log says so."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.device_time_total for e in prof.events()
+          if e.device_type == DeviceType.CUDA
+          and (names is None or any(k in e.name for k in names))]
+    if len(us) < n / 2 or sum(us) <= 0:
+        log(f"    (the profiler recorded {len(us)} of {n} launches of {names}: "
+            f"CUDA events over {10 * n} launches instead)")
+        return _host_ms(fn, 10 * n)
+    if len(us) != n:
+        log(f"    (the profiler recorded {len(us)} of {n} launches of {names}: "
+            f"the mean is over those)")
+    return sum(us) / 1e3 / len(us)
+
+
+def _times(fn, names, n=20):
+    """(device ms per launch, host-inclusive ms per call) of ``fn``."""
+    return _device_ms(fn, names, n), _host_ms(fn, n)
 
 
 def _bound(ops, nbytes):
@@ -245,25 +308,23 @@ def phase_kernels(dev):
             k = trace.trace_kernel(pk, r, cfg, attrs=attrs, occl=occl)
             pre[label] = k
             stats = {}
-            p = trace.trace_plain(pk, r, cfg, attrs=attrs, occl=occl,
-                                  stats=stats)
-            torch.cuda.synchronize()
+            p, pms = _timed_ms(lambda: trace.trace_plain(
+                pk, r, cfg, attrs=attrs, occl=occl, stats=stats))
             ok &= _compare(label, k, p, attrs, occl, reports[kname])
-            kms = _events_ms(lambda: trace.trace_kernel(
-                pk, r, cfg, attrs=attrs, occl=occl), 10)
-            pms = _events_ms(lambda: trace.trace_plain(
-                pk, r, cfg, attrs=attrs, occl=occl), 2)
+            kms, hms = _times(lambda: trace.trace_kernel(
+                pk, r, cfg, attrs=attrs, occl=occl), ("trace_kernel",))
             (bms, by), nbytes = _walk_bound(stats, r.shape[1], 8,
                                             2 if occl else 9)
-            log(f"    time at {r.shape[1]} rays: kernel {kms:.4f} ms, "
-                f"plain {pms:.1f} ms (median, CUDA events); {stats['node_visits']} "
-                f"slab tests, {stats['slot_tests']} slot tests, {nbytes} bytes "
-                f"read or written: bound {bms:.4f} ms ({by})")
+            log(f"    time at {r.shape[1]} rays: kernel {kms:.4f} ms device "
+                f"({hms:.4f} ms host-inclusive), plain {pms:.1f} ms (one run, "
+                f"CUDA events); {stats['node_visits']} slab tests, "
+                f"{stats['slot_tests']} slot tests, {nbytes} bytes read or "
+                f"written: bound {bms:.4f} ms ({by})")
             # the main path's dispatches: bounce and shadow rays on its tree
             if name == "grid100k leaf 8" and label in (
                     "closest attrs", "shadow occlusion"):
-                reports[kname].update(ms=kms, plain_ms=pms, bound_ms=bms,
-                                      bound_by=by)
+                reports[kname].update(ms=kms, device_ms=kms, host_ms=hms,
+                                      plain_ms=pms, bound_ms=bms, bound_by=by)
         # kernel 3: the near-first walk on the wide tree (grid100k at leaf
         # 8 walks wide anyway; cornell is asked to)
         if name != "grid100k leaf 32":
@@ -321,9 +382,8 @@ def phase_near_cases(name, pk, rays, shadow, cases, pre, reports):
         k = trace.trace_kernel(pk, r, cfg, attrs=attrs, occl=occl, tile=tile,
                                md=md)
         stats = {}
-        p = trace.trace_plain(pk, r, cfg, attrs=attrs, occl=occl, tile=tile,
-                              md=md, stats=stats)
-        torch.cuda.synchronize()
+        p, pms = _timed_ms(lambda: trace.trace_plain(
+            pk, r, cfg, attrs=attrs, occl=occl, tile=tile, md=md, stats=stats))
         same = torch.equal(k, p) and torch.equal(md, md_plain)
         _compare(f"near {label}", k, p, attrs, occl, reports["trace_near"])
         # lanes where the order decided: any plane differs from preorder
@@ -331,36 +391,62 @@ def phase_near_cases(name, pk, rays, shadow, cases, pre, reports):
         ta, tb = k[0][diff], pre[label][0][diff]
         band = (ta - tb).abs() <= cfg.tie_eps * torch.maximum(ta.abs(),
                                                               tb.abs())
-        kms = _events_ms(lambda: trace.trace_kernel(
-            pk, r, cfg, attrs=attrs, occl=occl, tile=tile, md=md), 10)
-        pms = _events_ms(lambda: trace.trace_plain(
-            pk, r, cfg, attrs=attrs, occl=occl, tile=tile, md=md), 2)
+        kms, hms = _times(lambda: trace.trace_kernel(
+            pk, r, cfg, attrs=attrs, occl=occl, tile=tile, md=md),
+            ("trace_kernel",))
         (bms, by), nbytes = _walk_bound(stats, r.shape[1], 8,
                                         2 if occl else 9)
         log(f"    near [{name}] {label}, packets of {tile}: kernel and plain "
             f"{'bitwise equal' if same else 'DIFFER'}; {int(diff.sum())} lanes "
             f"differ from preorder ({int((~band).sum())} outside the tie band)"
-            f"; kernel {kms:.4f} ms, plain {pms:.1f} ms; {stats['node_visits']}"
+            f"; kernel {kms:.4f} ms device ({hms:.4f} ms host-inclusive), "
+            f"plain {pms:.1f} ms; {stats['node_visits']}"
             f" slab tests, {stats['slot_tests']} slot tests, "
             f"{stats['near_sorts']} sorts, {nbytes} bytes: bound {bms:.4f} ms "
             f"({by})")
         ok &= same and bool(band.all())
         if name == "grid100k leaf 8" and label == "closest attrs":
-            reports["trace_near"].update(ms=kms, plain_ms=pms, bound_ms=bms,
+            reports["trace_near"].update(ms=kms, device_ms=kms, host_ms=hms,
+                                         plain_ms=pms, bound_ms=bms,
                                          bound_by=by)
-            R, n = r.shape[1], md.shape[0]
-            dms = _events_ms(lambda: trace.packet_dirs_kernel(r, tile), 20)
-            dpms = _events_ms(lambda: trace.packet_dirs_plain(r, tile), 2)
-            lib = _events_ms(lambda: r[3:6, :n * tile].reshape(3, n, tile)
-                             .sum(dim=2), 20) if R == n * tile else None
-            (dbms, dby) = _bound(3 * R, 4 * 3 * (R + n))
-            reports["packet_dirs"].update(
-                ms=dms, plain_ms=dpms, bound_ms=dbms, bound_by=dby,
-                library_ms=lib,
-                max_abs_err=float((md - md_plain).abs().max()))
-            log(f"    packet_dirs at {R} rays, {n} packets: kernel {dms:.4f} ms"
-                f", plain {dpms:.1f} ms, torch sum {lib} ms; bound "
-                f"{dbms:.5f} ms ({dby})")
+            ok &= _packet_sums(r, tile, md, md_plain, reports["packet_dirs"])
+    return ok
+
+
+def _packet_sums(r, tile, md, md_plain, rep):
+    """The packet sums at the main path's packets: device and
+    host-inclusive times beside torch.sum over the same packets (which
+    adds in its own order) and the bound; then the tall packets of
+    ``ray_tile`` 8192 and 16384 (2 and 4 bands of rows), bitwise against
+    the plain version on the same rays."""
+    from tinyraytracing_tpu_torch.ops import trace
+
+    R, n = r.shape[1], md.shape[0]
+    dms, hms = _times(lambda: trace.packet_dirs_kernel(r, tile),
+                      ("packet_dirs",))
+    dpms = _events_ms(lambda: trace.packet_dirs_plain(r, tile), 2)
+    lib = lib_h = None
+    if R == n * tile:
+        lib, lib_h = _times(lambda: r[3:6].reshape(3, n, tile).sum(dim=2), None)
+    (dbms, dby) = _bound(3 * R, 4 * 3 * (R + n))
+    rep.update(ms=dms, device_ms=dms, host_ms=hms, plain_ms=dpms,
+               bound_ms=dbms, bound_by=dby, library_ms=lib,
+               max_abs_err=float((md - md_plain).abs().max()))
+    log(f"    packet_dirs at {R} rays, {n} packets of {tile}: kernel {dms:.5f} "
+        f"ms device ({hms:.5f} ms host-inclusive), plain {dpms:.1f} ms, "
+        f"torch.sum {lib} ms device ({lib_h} ms host-inclusive); bound "
+        f"{dbms:.5f} ms ({dby}), the kernel at {100 * dbms / dms:.0f}% of it")
+    ok = True
+    for tall in (8192, 16384):
+        k = trace.packet_dirs_kernel(r, tall)
+        p = trace.packet_dirs_plain(r, tall)
+        torch.cuda.synchronize()
+        same = torch.equal(k, p)
+        tms = _device_ms(lambda: trace.packet_dirs_kernel(r, tall),
+                         ("packet_dirs",))
+        log(f"    packet_dirs, packets of {tall}: kernel and plain "
+            f"{'bitwise equal' if same else 'DIFFER'}; {tms:.5f} ms device")
+        ok &= same
     return ok
 
 
@@ -430,7 +516,7 @@ def phase_intersect_kernels(name, scene, cam, kinds, gen, reports):
             R = r.shape[1]
             stats = {}
             if kind == "bvh":
-                kern = lambda: bi.bvh_intersect_kernel(pk, r, cfg)
+                kern = lambda: bi.bvh_intersect_kernel(scene.bvh_records, r, cfg)
                 k = kern()
                 p, pms = _timed_ms(lambda: bi.bvh_intersect_plain(pk, r, cfg, stats))
                 work = (f"{stats['node_visits']} slab tests, "
@@ -445,20 +531,24 @@ def phase_intersect_kernels(name, scene, cam, kinds, gen, reports):
                    if not torch.equal(a, b)]
             hit = k[0] < 3.0e38
             err = float((k[0][hit] - p[0][hit]).abs().max()) if hit.any() else 0.0
-            kms = _events_ms(kern, 20)
+            kms, hms = _times(kern, (kname,))
             (bms, by), nbytes = _walk_bound(stats, R, 6, 4)
             log(f"  {kname} {label}: planes not bitwise equal {bad or 'none'}, "
-                f"{int(hit.sum())} hits; kernel {kms:.4f} ms, plain {pms:.1f} ms "
-                f"(CUDA events); {work}, {nbytes} bytes read or written: bound "
-                f"{bms:.4f} ms ({by})")
+                f"{int(hit.sum())} hits; kernel {kms:.4f} ms device ({hms:.4f} "
+                f"ms host-inclusive), plain {pms:.1f} ms (CUDA events); {work}, "
+                f"{nbytes} bytes read or written: bound {bms:.4f} ms ({by}), "
+                f"the kernel at {100 * bms / kms:.2f}% of it")
             ok &= not bad
             rep = reports[kname]
             rep["max_abs_err"] = max(rep["max_abs_err"], err)
+            rep.setdefault("cases", {})[f"{name}, {label}"] = dict(
+                device_ms=kms, host_ms=hms, bound_ms=bms)
             # the main path's dispatch: bounce rays on the tree the CLI
             # builds (kernel 4), on cornell (kernel 5)
             if label == "bounce" and (name, kind) in (("grid100k leaf 8", "bvh"),
                                                       ("cornell leaf 8", "slot")):
-                rep.update(ms=kms, plain_ms=pms, bound_ms=bms, bound_by=by)
+                rep.update(ms=kms, device_ms=kms, host_ms=hms, plain_ms=pms,
+                           bound_ms=bms, bound_by=by)
     return ok
 
 
@@ -506,7 +596,9 @@ def phase_cli(dev, out_dir):
 def _profiled(fn, kernel_name):
     """Device time of one run of ``fn`` under torch.profiler (CUDA activity
     only): (kernels, device busy ms, ms in kernels whose name holds
-    ``kernel_name``, or any of them if it is a tuple)."""
+    ``kernel_name``, or any of them if it is a tuple, and how many such
+    kernels it recorded: the profiler may drop records, so the callers
+    log that count beside the launches counted)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -519,9 +611,8 @@ def _profiled(fn, kernel_name):
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.device_time_total for e in dev)
     names = kernel_name if isinstance(kernel_name, tuple) else (kernel_name,)
-    kern_us = sum(e.device_time_total for e in dev
-                  if any(n in e.name for n in names))
-    return len(dev), busy_us / 1e3, kern_us / 1e3
+    kern = [e.device_time_total for e in dev if any(n in e.name for n in names)]
+    return len(dev), busy_us / 1e3, sum(kern) / 1e3, len(kern)
 
 
 def _traced_rays(render_args):
@@ -607,7 +698,8 @@ def phase_cli_scan(dev, out_dir, size=1024):
         real_render(*a, **k)                  # the same render, warm
         torch.cuda.synchronize()
         secs_again = time.perf_counter() - t0
-        n_dev, busy_ms, kern_ms = _profiled(lambda: real_render(*a, **k), kname)
+        n_dev, busy_ms, kern_ms, n_kern = _profiled(lambda: real_render(*a, **k),
+                                                    kname)
         primary, shadow = _traced_rays(seen["args"])
         rays = primary + shadow
         render_ms = 1e3 * secs
@@ -619,7 +711,8 @@ def phase_cli_scan(dev, out_dir, size=1024):
             f"again {secs_again:.3f}s, {rays / secs_again:.4g} rays/s")
         log(f"  the same render under torch.profiler: {n_dev} device ops "
             f"({n_dev / (n_chunks * 16):.0f} per bounce), {kern_ms:.1f} ms in "
-            f"{kname} = {100 * kern_ms / render_ms:.1f}% of the unprofiled "
+            f"{n_kern} recorded launches of {kname} = "
+            f"{100 * kern_ms / render_ms:.1f}% of the unprofiled "
             f"render, device busy {busy_ms:.1f} ms: the card idles "
             f"{100 * (1 - busy_ms / render_ms):.0f}%")
         log(f"  kernel launches {counts}; peak device memory "
@@ -656,7 +749,8 @@ def _render_report(label, wall, seen, counts, stats_fn, kernels):
     and kernel and busy time from torch.profiler of the same render run
     again; returns the image."""
     a, k = seen["args"]
-    n_dev, busy_ms, kern_ms = _profiled(lambda: stats_fn(*a, **k), kernels)
+    n_dev, busy_ms, kern_ms, n_kern = _profiled(lambda: stats_fn(*a, **k),
+                                                kernels)
     img, secs = seen["img"], seen["seconds"]
     render_ms = 1e3 * secs
     log(f"  {label}: wall {wall:.2f}s; render {secs:.3f}s, {seen['rays']:.0f} "
@@ -664,7 +758,8 @@ def _render_report(label, wall, seen, counts, stats_fn, kernels):
         f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; image mean "
         f"{float(img.mean()):.6g}, shape {tuple(img.shape)}")
     log(f"  kernel launches {counts}; the same render under torch.profiler: "
-        f"{n_dev} device ops, {kern_ms:.1f} ms in {'/'.join(kernels)} = "
+        f"{n_dev} device ops, {kern_ms:.1f} ms in {n_kern} recorded launches "
+        f"of {'/'.join(kernels)} = "
         f"{100 * kern_ms / render_ms:.1f}% of the unprofiled render, device "
         f"busy {busy_ms:.1f} ms: the card idles "
         f"{100 * (1 - busy_ms / render_ms):.0f}%")
@@ -885,10 +980,124 @@ def phase_render_vs_render(dev):
                            imgs, secs, 64)
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# --compare: the redesigned kernels against a parent tree, in one call
+# ---------------------------------------------------------------------------
+
+def kernel_times(tree):
+    """``--kernel-times TREE``: device and host-inclusive times of the
+    kernels whose design the last change replaced, as the package in
+    ``TREE`` runs them, with this script's timing code: the packet sums of
+    262,144 rays in packets of 2048 (beside torch.sum) and of 16384, and
+    the packet-BVH kernel on phase 2b's three kinds of rays on grid100k at
+    leaf 8 and 32 and on cornell. Prints one JSON object: per case
+    [device ms, host-inclusive ms, digest of the outputs] (no digest for
+    torch.sum, and none for the packets of 16384, whose order of adds
+    the packet-sum repair changed)."""
+    import hashlib
+
+    sys.path.insert(0, os.path.abspath(tree))
+    import tinyraytracing_tpu_torch
+    from tinyraytracing_tpu_torch.config import RenderConfig
+    from tinyraytracing_tpu_torch.ops import bvh_intersect as bi
+    from tinyraytracing_tpu_torch.ops import trace
+
+    def digest(out):
+        h = hashlib.sha256()
+        for x in (out if isinstance(out, tuple) else (out,)):
+            h.update(x.contiguous().cpu().numpy().tobytes())
+        return h.hexdigest()[:16]
+
+    res = {"package": os.path.dirname(tinyraytracing_tpu_torch.__file__)}
+    gen = torch.Generator().manual_seed(7)
+    R = 262144
+    d = torch.randn(3, R, generator=gen)
+    rays = torch.zeros(8, R)
+    rays[3:6] = d / d.norm(dim=0)
+    rays = rays.cuda()
+    for tile in (2048, 16384):
+        fn = lambda: trace.packet_dirs_kernel(rays, tile)
+        res[f"packet_dirs, packets of {tile}"] = [
+            *_times(fn, ("packet_dirs",)), digest(fn()) if tile <= 4096 else ""]
+    n = R // 2048
+    res["torch.sum, packets of 2048"] = [
+        *_times(lambda: rays[3:6].reshape(3, n, 2048).sum(dim=2), None), ""]
+    cfg = RenderConfig()
+    for name, scene, cam in _phase2_scenes():
+        scene = scene.to("cuda")
+        probe = _scan_probe_rays(scene, cam, torch.Generator().manual_seed(2024))
+        for label, r in probe.items():
+            fn = lambda: bi.bvh_intersect_planes(scene, r, cfg)
+            res[f"bvh_intersect {name}, {label}"] = [
+                *_times(fn, ("bvh_intersect",)), digest(fn())]
+    print(json.dumps(res), flush=True)
+    return 0
+
+
+def compare(parent, out_path):
+    """``--compare PARENT``: ``--kernel-times`` of the package in PARENT (a
+    ``git archive`` of the parent commit, unpacked) and of this tree, in
+    turns (parent, this, this, parent), each in its own process, so both
+    are timed on the same card; prints the device times side by side and
+    fails unless the two trees' outputs are bitwise equal in every case."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    runs = []
+    for tree in (parent, here, here, parent):
+        res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              "--kernel-times", tree], cwd=tree,
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            log(f"--kernel-times {tree} failed:\n{res.stdout[-3000:]}"
+                f"{res.stderr[-3000:]}")
+            return 1
+        runs.append(json.loads(res.stdout.strip().splitlines()[-1]))
+        log(f"timed {runs[-1].pop('package')}")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip()
+    log(f"{smi}; device ms per launch (host-inclusive ms in brackets); "
+        f"runs in the order parent, this, this, parent")
+    ok, table = True, {}
+    for key in runs[0]:
+        old = [runs[0][key], runs[3][key]]
+        new = [runs[1][key], runs[2][key]]
+        same = len({r[2] for r in old + new}) == 1
+        checked = bool(old[0][2])
+        ok &= same or not checked
+        om, nm = statistics.mean(r[0] for r in old), statistics.mean(r[0] for r in new)
+        table[key] = dict(parent_device_ms=[r[0] for r in old],
+                          device_ms=[r[0] for r in new],
+                          parent_host_ms=[r[1] for r in old],
+                          host_ms=[r[1] for r in new],
+                          speedup=om / nm,
+                          outputs_equal=same if checked else None)
+        log(f"  {key}: parent {old[0][0]:.5f} / {old[1][0]:.5f} "
+            f"[{old[0][1]:.5f} / {old[1][1]:.5f}], this {new[0][0]:.5f} / "
+            f"{new[1][0]:.5f} [{new[0][1]:.5f} / {new[1][1]:.5f}]: "
+            f"{om / nm:.2f}x; outputs "
+            f"{'not compared' if not checked else 'bitwise equal' if same else 'DIFFER'}")
+    if out_path:
+        with open(out_path, "w") as f:
+            json.dump({"device": smi, "cases": table}, f, indent=1)
+    return 0 if ok else 1
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--compare", metavar="PARENT",
+                    help="time the redesigned kernels against the tree PARENT")
+    ap.add_argument("--out", help="with --compare: write the table here (JSON)")
+    ap.add_argument("--kernel-times", metavar="TREE", help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if args.kernel_times:
+        return kernel_times(args.kernel_times)
+    if args.compare:
+        return compare(os.path.abspath(args.compare), args.out)
     from tinyraytracing_tpu_torch.ops import kernels
 
     dev = torch.device("cuda")
@@ -925,9 +1134,11 @@ def main() -> int:
     # hit; the packet sums have one (a sum over each packet)
     kern = [dict(name=k, route="cuda", source=SOURCES[k], replaces=REPLACES[k],
                  launches=launches.get(k, 0), max_abs_err=r["max_abs_err"],
-                 ms=r.get("ms"), plain_ms=r.get("plain_ms"),
+                 ms=r.get("ms"), device_ms=r.get("device_ms"),
+                 host_ms=r.get("host_ms"), plain_ms=r.get("plain_ms"),
                  bound_ms=r.get("bound_ms"), bound_by=r.get("bound_by"),
-                 library_ms=r.get("library_ms"))
+                 library_ms=r.get("library_ms"),
+                 **({"cases": r["cases"]} if "cases" in r else {}))
             for k, r in reports.items()]
     log(json.dumps({"kernels": kern}))
     phases = {"kernels": ok2, "scan kernels": ok2b, "cli render": ok3,

@@ -84,13 +84,15 @@ def test_kernels_bitwise_equal_plain(name, shadow, device):
 def test_packet_dirs_kernel_bitwise_equal_plain(device):
     """The near-first walk's packet direction sums: the kernel adds in the
     plain version's (XLA's) order, so the sums are bitwise equal, at every
-    packet size, with a padded last packet."""
-    rays = _rays(5000, device)
-    for tile in (128, 1024, 2048, 4096):
+    packet size from 128 to 32768 rays (one band of rows up to 4096; 2, 3,
+    4 and 8 bands above), with a padded last packet."""
+    R = 2 * 32768 + 300
+    rays = _rays(R, device)
+    for tile in (128, 384, 1024, 2048, 4096, 8192, 12288, 16384, 32768):
         k = trace.packet_dirs_kernel(rays, tile)
         p = trace.packet_dirs_plain(rays, tile)
         torch.cuda.synchronize()
-        assert k.shape == (-(-5000 // tile), 3) and torch.equal(k, p), tile
+        assert k.shape == (-(-R // tile), 3) and torch.equal(k, p), tile
 
 
 def test_wrapper_launches_kernel_on_cuda(device):
@@ -122,7 +124,7 @@ def test_intersect_kernels_bitwise_equal_plain(name, shadow, device):
     scene = _scene(name, device)
     rays = _rays(4096, device, scene if shadow else None)[:6].contiguous()
     cfg = RenderConfig()
-    k = bvh_intersect.bvh_intersect_kernel(scene.bvh.packed, rays, cfg)
+    k = bvh_intersect.bvh_intersect_kernel(scene.bvh_records, rays, cfg)
     p = bvh_intersect.bvh_intersect_plain(scene.bvh.packed, rays, cfg)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(k, p))
@@ -131,6 +133,34 @@ def test_intersect_kernels_bitwise_equal_plain(name, shadow, device):
     p = slot_intersect.slot_intersect_plain(P, scene.num_triangles, rays, cfg)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(k, p))
+
+
+@pytest.mark.parametrize("leaf_size", [1, 4, 8, 32])
+def test_bvh_kernel_bitwise_equal_plain_leaf_sizes(leaf_size, device):
+    """The packet-BVH kernel (which tests only the occupied slots of the
+    scene's bvh_records) against its plain version (every slot of the JAX
+    layout) at every leaf width, with partly filled leaves, on random
+    rays, shadow rays toward the light and parked rays (origin at 1e30):
+    every plane bitwise equal."""
+    scene, _ = quad_grid(2000, device="cpu")
+    scene = attach_bvh(scene, RenderConfig(leaf_size=leaf_size)).to(device)
+    pk = scene.bvh.packed
+    counts = pk.node_meta[:, 1][pk.node_meta[:, 1] >= 0] & 63
+    assert int(counts.max()) <= leaf_size
+    if leaf_size > 1:
+        assert int(counts.min()) < leaf_size          # partly filled leaves
+    rays = _rays(4096, device)[:6]
+    shadow = _rays(4096, device, scene)[:6]
+    parked = rays.clone()
+    parked[:3, ::2] = 1.0e30
+    cfg = RenderConfig()
+    for label, r in (("random", rays), ("shadow", shadow), ("parked", parked)):
+        r = r.contiguous()
+        k = bvh_intersect.bvh_intersect_kernel(scene.bvh_records, r, cfg)
+        p = bvh_intersect.bvh_intersect_plain(pk, r, cfg)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(k, p)), label
+        assert bool((k[0] < 3.0e38).any()), label
 
 
 def test_auto_intersect_launches_kernels_on_cuda(device):

@@ -166,6 +166,31 @@ def test_packet_sums_equal_mean_dir():
         np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("tile", [8192, 16384])
+def test_packet_sums_equal_jnp_sum_tall_packets(tile):
+    """Packets taller than 32 rows (``ray_tile`` 8192 and up): XLA adds
+    each 32-row band's four window sums in order and the band sums
+    pairwise, and ``packet_dirs_plain`` adds in that order, bitwise
+    ``jnp.sum`` of the JAX packet block, with a ragged last packet."""
+    rng = np.random.default_rng(tile)
+    R = 2 * tile + 1000
+    d = rng.normal(size=(R, 3)) + (0.2, 0.1, 2.0)     # camera-like
+    d[:R // 2] = rng.normal(size=(R // 2, 3))           # and incoherent
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    rays = torch.zeros(8, R)
+    rays[3:6] = torch.from_numpy(np.ascontiguousarray(d.T))
+    got = ttrace.packet_dirs_plain(rays, tile).numpy()
+    pad = np.zeros((got.shape[0] * tile, 3), np.float32)
+    pad[:R] = d
+    mean_dir = jax.jit(_mean_dir)
+    want = np.array(
+        [[float(x) for x in mean_dir(*(
+            jnp.asarray(pad[p * tile:(p + 1) * tile, k].reshape(-1, 128))
+            for k in range(3)))] for p in range(got.shape[0])], np.float32)
+    assert got.shape == (3, 3)
+    np.testing.assert_array_equal(got, want)
+
+
 def test_near_walk_orders_and_culls():
     """On the same rays the near walk returns the preorder walk's planes
     (no ties here) and tests fewer slots: front-to-back order shrinks

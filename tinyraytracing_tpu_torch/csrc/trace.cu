@@ -283,55 +283,105 @@ __global__ void __launch_bounds__(128) trace_kernel(TraceParams p) {
 }
 
 // _mean_dir (pallas_trace.py:376) as XLA's CPU backend adds it: a packet's
-// (rows, 128) block in windows of min(rows, 32) rows by 32 lanes, each
-// summed row-major from 0, then the window sums in order from 0; rays past
-// R are zero padding. ops/trace.py::packet_dirs_plain is the same sum.
-// Bound by bytes (each direction float read once). One block per (packet,
-// axis): the block stages one row band (up to 32 rows x 128 lanes) in
-// shared memory with coalesced loads, then four threads run the four
-// windows' dependent add chains side by side (a window's 32-lane columns
-// sit 32 * wr + 1 floats apart, so the four read different banks), and
-// thread 0 adds the window sums in order.
+// (rows, 128) block in bands of min(rows, 32) rows, each band in four
+// windows of 32 lanes; each window summed row-major from 0, each band's
+// four window sums in order from 0, then the band sums pairwise
+// (b[i] + b[i + n/2], halving; the band count padded with zero bands to a
+// power of two). Rays past R are zero padding.
+// ops/trace.py::packet_dirs_plain is the same sum.
+//
+// The order of the adds is fixed, so each window's chain of wr * 32
+// dependent adds (512 at tile 2048) is the critical path; the bound by
+// bytes is about as long. One block per (packet, axis), one warp per
+// window (up to 32 warps; a warp takes windows w, w + 32, ... of taller
+// packets): the warp's 32 lanes load the window's rows, one 128-byte row
+// per load, all in flight before any is used, into the warp's own slice of
+// shared memory; then lane 0 runs the chain from 16-byte shared loads,
+// which do not depend on the chain and run ahead of it. Thread 0 then
+// combines the window sums in the order above.
 #define TRT_DIRS_BAND 32
-__global__ void __launch_bounds__(128) packet_dirs_kernel(
+#define TRT_DIRS_WARPS 32
+__global__ void __launch_bounds__(32 * TRT_DIRS_WARPS) packet_dirs_kernel(
     const float* __restrict__ rays, int R, int tile, float* __restrict__ md) {
-  __shared__ float buf[4 * (TRT_DIRS_BAND * 32 + 1)];
-  __shared__ float part[4];
+  extern __shared__ float4 dirs_smem[];
   const int pkt = blockIdx.x, axis = blockIdx.y;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int nwarps = blockDim.x / 32;
   const float* d = rays + (long long)(3 + axis) * R;
   const int rows = tile / 128;
   const int wr = rows < TRT_DIRS_BAND ? rows : TRT_DIRS_BAND;
-  const int rb = (rows + wr - 1) / wr, pitch = wr * 32 + 1;
+  const int rb = (rows + wr - 1) / wr, nwin = 4 * rb;
   const long long base = (long long)pkt * tile;
-  float tot = 0.f;
-  for (int b = 0; b < rb; ++b) {
-    for (int e = threadIdx.x; e < wr * 128; e += blockDim.x) {
-      const int r = e / 128, c = e % 128, row = b * wr + r;
-      const long long k = base + (long long)row * 128 + c;
-      buf[(c / 32) * pitch + r * 32 + c % 32] =
-          (row < rows && k < R) ? __ldg(d + k) : 0.f;
+  float* win = (float*)dirs_smem + warp * (TRT_DIRS_BAND * 32);
+  float* part = (float*)dirs_smem + nwarps * (TRT_DIRS_BAND * 32);
+  for (int w = warp; w < nwin; w += nwarps) {
+    const int b = w / 4, j = w % 4;
+    float v[TRT_DIRS_BAND];
+#pragma unroll
+    for (int r = 0; r < TRT_DIRS_BAND; ++r) {
+      const int row = b * wr + r;
+      const long long k = base + (long long)row * 128 + j * 32 + lane;
+      v[r] = (r < wr && row < rows && k < R) ? __ldg(d + k) : 0.f;
     }
-    __syncthreads();
-    if (threadIdx.x < 4) {
-      const float* w = buf + threadIdx.x * pitch;
+#pragma unroll
+    for (int r = 0; r < TRT_DIRS_BAND; ++r)
+      if (r < wr) win[r * 32 + lane] = v[r];
+    __syncwarp();
+    if (lane == 0) {
+      const float4* q = (const float4*)win;
       float acc = 0.f;
-      for (int j = 0; j < wr * 32; ++j) acc += w[j];
-      part[threadIdx.x] = acc;
+#pragma unroll 2
+      for (int r = 0; r < wr; ++r) {
+        float4 x[8];
+#pragma unroll
+        for (int c = 0; c < 8; ++c) x[c] = q[r * 8 + c];
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          acc += x[c].x;
+          acc += x[c].y;
+          acc += x[c].z;
+          acc += x[c].w;
+        }
+      }
+      part[w] = acc;
     }
-    __syncthreads();
-    if (threadIdx.x == 0) tot = (((tot + part[0]) + part[1]) + part[2]) + part[3];
-    __syncthreads();  // the next band overwrites buf
+    __syncwarp();  // the warp's next window overwrites its slice
   }
-  if (threadIdx.x == 0) md[3 * pkt + axis] = tot;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < rb; ++b)
+      part[b] = (((0.f + part[4 * b]) + part[4 * b + 1]) + part[4 * b + 2]) +
+                part[4 * b + 3];
+    int n = 1;
+    while (n < rb) n *= 2;
+    for (int b = rb; b < n; ++b) part[b] = 0.f;
+    for (int h = n / 2; h >= 1; h /= 2)
+      for (int i = 0; i < h; ++i) part[i] = part[i] + part[i + h];
+    md[3 * pkt + axis] = part[0];
+  }
 }
 
 extern "C" int trt_packet_dirs(const float* rays, int R, int tile, float* md,
                                void* stream) {
   if (R <= 0) return 0;
   if (tile <= 0 || tile % 128) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)((R + tile - 1) / tile), 3), block(128);
-  packet_dirs_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(rays, R, tile,
-                                                               md);
+  const int rows = tile / 128;
+  const int wr = rows < TRT_DIRS_BAND ? rows : TRT_DIRS_BAND;
+  const int nwin = 4 * ((rows + wr - 1) / wr);
+  const int nwarps = nwin < TRT_DIRS_WARPS ? nwin : TRT_DIRS_WARPS;
+  // the warps' window slices, then one sum per window (the band sums, padded
+  // to a power of two, reuse the first half)
+  const size_t smem =
+      sizeof(float) * ((size_t)nwarps * TRT_DIRS_BAND * 32 + nwin);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        packet_dirs_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const dim3 grid((unsigned)((R + tile - 1) / tile), 3), block(32 * nwarps);
+  packet_dirs_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(rays, R,
+                                                                  tile, md);
   return (int)cudaGetLastError();
 }
 

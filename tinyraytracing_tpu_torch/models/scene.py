@@ -169,6 +169,16 @@ class Scene:
         return pack_triangle_slots(self.woop_a, self.woop_b, self.gn,
                                    self.tri_emissive)
 
+    @functools.cached_property
+    def bvh_records(self):
+        """The packet-BVH kernel's layout of the scene's BVH
+        (``ops.bvh_intersect.bvh_records``: node records and the occupied
+        slots' records), on the scene's device; built at first use and
+        kept with the scene."""
+        from tinyraytracing_tpu_torch.ops.bvh_intersect import bvh_records
+
+        return bvh_records(self.bvh.packed)
+
     def to(self, device) -> "Scene":
         return _to(self, device)
 

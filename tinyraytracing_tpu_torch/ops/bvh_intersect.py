@@ -4,11 +4,14 @@ the ``intersector="bvh_pallas"`` backend, and the scan renderer's "auto"
 backend on a CUDA scene with a BVH.
 
 A hand-written CUDA kernel (``csrc/bvh_intersect.cu``) replaces the
-Pallas packet walk with a per-ray stackless cursor walk; its source note
-says why that is exact lane for lane and what bounds it on an H100.
-Beside it lives its plain PyTorch version, ``bvh_intersect_plain``: the
-same per-ray walk vectorised over the rays still walking, with the
-kernel's exact arithmetic (the slot test and running best of
+Pallas packet walk with a per-ray stackless cursor walk over a layout of
+the same tree made for the card (``BvhRecords``: 32-byte node records and
+64-byte records of the occupied slots only, built once per scene from the
+PackedLeaves as ``Scene.bvh_records``); its source note says why that is
+exact lane for lane and what bounds it on an H100. Beside it lives its
+plain PyTorch version, ``bvh_intersect_plain``: the same per-ray walk over
+the JAX layout, vectorised over the rays still walking, with the kernel's
+exact arithmetic (the slot test and running best of
 ``ops/slot_test.py``). ``bvh_intersect_planes`` takes the plain version
 only for CPU tensors; on a CUDA tensor it launches the kernel or raises.
 
@@ -16,14 +19,16 @@ Semantics (``pallas_bvh.py:59-244``): inverse direction
 where(d == 0, 3e38, 1) / where(d == 0, 1, d); slab test with the tie-band
 early-out always on (not gated by ``config.bvh_early_out``); leaf
 encoding leaf_id*64 + count (-1 interior); slots 0..leaf_size-1 of the
-leaf's block tested with the Woop-plane test; the slot id carried as a
-float and mapped to a triangle through ``tid`` (a miss keeps slot 0, so
-its triangle is tid[0]).
+leaf's block tested with the Woop-plane test (the pad slots beyond the
+leaf's count never hit, so the kernel tests only the occupied ones); the
+slot id carried as a float and mapped to a triangle through ``tid`` (a
+miss keeps slot 0, so its triangle is tid[0]).
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -51,8 +56,8 @@ def bvh_intersect_plain(pk, rays: torch.Tensor, config: RenderConfig,
     the scene's PackedLeaves; returns (t f32, tri int32, u, v), exactly
     what the kernel writes. ``stats`` (if given) gains the work the walk
     needs, for the kernel's bound: "node_visits" (slab tests),
-    "slot_tests" (the occupied slots of each leaf entered; the kernel also
-    tests its pad slots up to leaf_size) and "scene_bytes" (each node
+    "slot_tests" (the occupied slots of each leaf entered) and
+    "scene_bytes" (each node
     visited, occupied slot tested and ``tid`` entry read, counted once:
     40, 64 and 4 bytes)."""
     f32 = torch.float32
@@ -137,8 +142,55 @@ def bvh_intersect_plain(pk, rays: torch.Tensor, config: RenderConfig,
 
 
 # ---------------------------------------------------------------------------
-# the CUDA kernel's wrapper
+# the kernel's layout of the same tree, and the CUDA kernel's wrapper
 # ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class BvhRecords:
+    """The kernel's layout of a PackedLeaves tree (``bvh_records``).
+
+    ``node`` (N, 8) int32, one 32-byte record per node: the bits of
+    node_box's x0 y0 z0 x1 y1 z1, then ``link`` and ``enc``. ``enc`` is
+    node_meta's leaf word (leaf_id*64 + count, -1 for an interior node);
+    ``link`` is node_meta's skip link for an interior node and the index
+    of the leaf's first slot record for a leaf (a leaf's skip link is the
+    next node). ``slot`` (n_records, 16) float32, one 64-byte record per
+    occupied slot, its 16 attributes in P's order, each leaf's records
+    contiguous and in slot order. ``tid`` is the packed tree's slot ->
+    triangle map."""
+
+    node: torch.Tensor
+    slot: torch.Tensor
+    tid: torch.Tensor
+    n_nodes: int
+
+
+def bvh_records(pk) -> BvhRecords:
+    """The kernel's layout of ``pk`` on its device (``Scene.bvh_records``
+    builds it once per scene)."""
+    dev = pk.node_meta.device
+    skip, enc = pk.node_meta[:, 0].long(), pk.node_meta[:, 1].long()
+    leaf_node = torch.nonzero(enc >= 0).squeeze(1)
+    if not torch.equal(skip[leaf_node], leaf_node + 1):
+        raise ValueError("a leaf's skip link must be the next node")
+    leaf, count = enc[leaf_node] >> 6, enc[leaf_node] & 63
+    order = torch.argsort(leaf)                 # records in leaf-id order
+    first = torch.zeros_like(count)
+    first[order] = torch.cumsum(count[order], 0) - count[order]
+    link = skip.clone()
+    link[leaf_node] = first
+    node = torch.cat([pk.node_box[:, :6].contiguous().view(torch.int32),
+                      link.to(torch.int32)[:, None],
+                      pk.node_meta[:, 1:]], dim=1).contiguous()
+    # slot id 32*leaf + s of each record, then its 16 attributes from P
+    rec_leaf = torch.repeat_interleave(leaf[order], count[order])
+    s = torch.arange(rec_leaf.numel(), device=dev) - torch.repeat_interleave(
+        first[order], count[order])
+    a = torch.arange(16, device=dev)
+    col = rec_leaf[:, None] * 128 + (a % 4) * SLOT + s[:, None]
+    slot = pk.P[a // 4, col].contiguous()
+    return BvhRecords(node=node, slot=slot, tid=pk.tid, n_nodes=pk.n_nodes)
+
 
 def _lib():
     from tinyraytracing_tpu_torch.ops.kernels import library
@@ -146,42 +198,41 @@ def _lib():
     lib = library("bvh_intersect.cu")
     if not getattr(lib, "_trt_typed", False):
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.trt_bvh_intersect.argtypes = [P, P, P, P, P, ctypes.c_longlong,
-                                          P, P, P, P, I, I, I, I, F, F, F, P]
+        lib.trt_bvh_intersect.argtypes = [P, P, P, P, P, P, P, P, I, I, I,
+                                          F, F, F, P]
         lib.trt_bvh_intersect.restype = ctypes.c_int
         lib._trt_typed = True
     return lib
 
 
-def bvh_intersect_kernel(pk, rays: torch.Tensor, config: RenderConfig):
-    """Launch the CUDA kernel on PyTorch's current stream; same contract as
-    ``bvh_intersect_plain``. Raises on a CPU tensor or a failed launch."""
+def bvh_intersect_kernel(rec: BvhRecords, rays: torch.Tensor,
+                         config: RenderConfig):
+    """Launch the CUDA kernel on PyTorch's current stream over the scene's
+    ``bvh_records``; same result as ``bvh_intersect_plain`` on the scene's
+    PackedLeaves. Raises on a CPU tensor or a failed launch."""
     if not rays.is_cuda:
         raise ValueError("bvh_intersect_kernel needs CUDA tensors")
     for name, x, dt in (("rays", rays, torch.float32),
-                        ("node_box", pk.node_box, torch.float32),
-                        ("node_meta", pk.node_meta, torch.int32),
-                        ("P", pk.P, torch.float32), ("tid", pk.tid, torch.int32)):
+                        ("node", rec.node, torch.int32),
+                        ("slot", rec.slot, torch.float32),
+                        ("tid", rec.tid, torch.int32)):
         if x.dtype != dt or not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous {dt}")
         if x.device != rays.device:
             raise ValueError(f"{name} is on {x.device}, rays on {rays.device}")
     if rays.dim() != 2 or rays.shape[0] != 6:
         raise ValueError(f"rays must be (6, R), got {tuple(rays.shape)}")
-    if (tuple(pk.node_box.shape) != (pk.n_nodes, 8)
-            or tuple(pk.node_meta.shape) != (pk.n_nodes, 2)):
-        raise ValueError("node_box must be (N, 8) and node_meta (N, 2)")
-    if pk.P.dim() != 2 or pk.P.shape[0] != 4 or not 1 <= pk.leaf_size <= SLOT:
-        raise ValueError("P must be (4, cols) with leaf_size in [1, 32]")
+    if (tuple(rec.node.shape) != (rec.n_nodes, 8) or rec.slot.dim() != 2
+            or rec.slot.shape[1] != 16):
+        raise ValueError("node records must be (N, 8) and slot records (n, 16)")
     R = rays.shape[1]
     f = lambda dt: torch.empty(R, dtype=dt, device=rays.device)
     t, tri, u, v = f(torch.float32), f(torch.int32), f(torch.float32), f(torch.float32)
     with torch.cuda.device(rays.device):
         err = _lib().trt_bvh_intersect(
-            rays.data_ptr(), pk.node_box.data_ptr(), pk.node_meta.data_ptr(),
-            pk.P.data_ptr(), pk.tid.data_ptr(), pk.P.shape[1],
-            t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(),
-            R, pk.n_nodes, pk.leaf_size, pk.tid.shape[0],
+            rays.data_ptr(), rec.node.data_ptr(), rec.slot.data_ptr(),
+            rec.tid.data_ptr(), t.data_ptr(), tri.data_ptr(), u.data_ptr(),
+            v.data_ptr(), R, rec.n_nodes, rec.tid.shape[0],
             config.t_min, config.n_dot_d_min, 1.0 + config.tie_eps,
             torch.cuda.current_stream(rays.device).cuda_stream)
     if err != 0:
@@ -195,10 +246,9 @@ def bvh_intersect_planes(scene, rays: torch.Tensor, config: RenderConfig):
     into one contiguous (6, R) float32 block, in;
     (t, tri, u, v) (R,) planes out, as ``pallas_bvh_intersect_planes``
     returns them."""
-    pk = scene.bvh.packed
     if rays.is_cuda:
-        return bvh_intersect_kernel(pk, rays, config)
+        return bvh_intersect_kernel(scene.bvh_records, rays, config)
     if rays.device.type == "cpu":
-        return bvh_intersect_plain(pk, rays, config)
+        return bvh_intersect_plain(scene.bvh.packed, rays, config)
     raise ValueError(f"no bvh_intersect implementation for device {rays.device}")
 

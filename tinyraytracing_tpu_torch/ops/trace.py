@@ -110,10 +110,15 @@ def packet_dirs_plain(rays: torch.Tensor, tile: int) -> torch.Tensor:
     packet of ``tile`` consecutive rays of the (8, R) ``rays``, the last
     packet zero-padded — ``_mean_dir`` over the JAX kernel's packets,
     parked lanes included, added in XLA's CPU order: a packet is a
-    (tile/128, 128) block, cut into windows of min(rows, 32) rows by 32
-    lanes, each window summed row-major from 0, then the window sums in
-    order from 0 (exact for packets of up to 4096 rays, the JAX kernel's
-    sizes; for taller packets XLA's last step adds in another order)."""
+    (tile/128, 128) block, cut into bands of min(rows, 32) rows and each
+    band into four windows of 32 lanes; each window is summed row-major
+    from 0, each band's four window sums in order from 0, and the band
+    sums pairwise, ``b[i] + b[i + n/2]`` halving to one (the band count
+    padded with zero bands to a power of two). Bitwise ``jnp.sum`` on the
+    CPU for every tile up to 4096 (one band) and for 8192, 16384 and
+    32768 (2, 4 and 8 full bands). XLA adds the other tall tiles (5120
+    or 65536 rays, say) in other orders, so there the sums may differ
+    from ``_mean_dir`` in the last bits."""
     if tile <= 0 or tile % 128:
         raise ValueError(f"packets hold a multiple of 128 rays, got {tile}")
     R = rays.shape[1]
@@ -125,19 +130,24 @@ def packet_dirs_plain(rays: torch.Tensor, tile: int) -> torch.Tensor:
         3, n, rows, 128)
     d = torch.nn.functional.pad(d, (0, 0, 0, rb * wr - rows))
     win = d.reshape(3, n, rb, wr, 4, 32).permute(0, 1, 2, 4, 3, 5).reshape(
-        3, n, rb * 4, wr * 32)
-    acc = torch.zeros(win.shape[:3], dtype=torch.float32, device=rays.device)
+        3, n, rb, 4, wr * 32)
+    acc = torch.zeros(win.shape[:4], dtype=torch.float32, device=rays.device)
     for k in range(wr * 32):
         acc = acc + win[..., k]
-    tot = torch.zeros((3, n), dtype=torch.float32, device=rays.device)
-    for j in range(rb * 4):
-        tot = tot + acc[..., j]
-    return tot.T.contiguous()
+    band = torch.zeros(win.shape[:3], dtype=torch.float32, device=rays.device)
+    for j in range(4):
+        band = band + acc[..., j]
+    band = torch.nn.functional.pad(band, (0, (1 << (rb - 1).bit_length()) - rb))
+    while band.shape[-1] > 1:
+        h = band.shape[-1] // 2
+        band = band[..., :h] + band[..., h:]
+    return band[..., 0].T.contiguous()
 
 
 def packet_dirs_kernel(rays: torch.Tensor, tile: int) -> torch.Tensor:
     """Launch the CUDA kernel of ``packet_dirs_plain`` (one block per
-    packet and axis, the same additions in the same order)."""
+    packet and axis, one warp per window; the same additions in the same
+    order)."""
     if not rays.is_cuda:
         raise ValueError("packet_dirs_kernel needs CUDA tensors")
     if (rays.dtype != torch.float32 or not rays.is_contiguous()
