@@ -15,7 +15,10 @@ Needs one CUDA device and nvcc; exits non-zero on any failure (and without
 a result when there is no CUDA device). The last line of standard output
 is {"ok": true, "device": {...}}; the line before it lists the kernels,
 each with its device time per launch (torch.profiler) and its
-host-inclusive time (CUDA events around back-to-back calls).
+host-inclusive time (CUDA events around back-to-back calls). Each timed
+set runs after ~50 ms of back-to-back launches that raise the card's
+clock from idle, and the log gives the SM clock nvidia-smi read right
+after it, marking readings below 1,500 MHz.
 
 Before and after a kernel's redesign, on one card in one call:
 
@@ -23,7 +26,10 @@ Before and after a kernel's redesign, on one card in one call:
     python3 chip_smoke.py --compare tmp_out/parent --out tmp_out/compare.json
 
 times the redesigned kernels of the parent's package and of this tree in
-turns (parent, this, this, parent) and checks their outputs bitwise equal.
+turns (parent, this, this, parent) and checks their outputs bitwise equal:
+the trace kernels through ``ops.trace.fused_trace_planes`` (closest hit
+and occlusion, preorder and near-first), the packet sums and the
+packet-BVH kernel.
 """
 
 from __future__ import annotations
@@ -59,6 +65,8 @@ REPLACES = {
 # cores, and HBM bandwidth
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 SCAN_CHUNK = 65536               # RenderConfig.ray_chunk: one scan dispatch
+WARM_S = 0.05                    # warm-up load before each timed set
+LOW_MHZ = 1500                   # a reading below this SM clock is marked
 
 
 def log(*a):
@@ -127,9 +135,42 @@ def _device_ms(fn, names=None, n=20):
     return sum(us) / 1e3 / len(us)
 
 
+def _warm(fn=None):
+    """About WARM_S seconds of back-to-back calls of ``fn`` (by default an
+    in-place add over 16 MiB, which allocates nothing: a matrix product
+    would leave cuBLAS's workspace allocated and in every later peak) on
+    the card: an idle card runs at a low clock, and a short timed set
+    alone does not raise it."""
+    if fn is None:
+        x = torch.zeros(1 << 22, device="cuda")
+        fn = lambda: x.add_(1.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < WARM_S:
+        for _ in range(8):
+            fn()
+        torch.cuda.synchronize()
+
+
+def _sm_clock():
+    """The card's SM clock in MHz, as nvidia-smi reads it now."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True).stdout
+    return int(out.split()[0])
+
+
+def _mhz(clock):
+    """The clock beside a reading, marked where it was low."""
+    return f"{clock} MHz" + (f" (below {LOW_MHZ:,} MHz)" if clock < LOW_MHZ else "")
+
+
 def _times(fn, names, n=20):
-    """(device ms per launch, host-inclusive ms per call) of ``fn``."""
-    return _device_ms(fn, names, n), _host_ms(fn, n)
+    """(device ms per launch, host-inclusive ms per call, SM clock MHz right
+    after) of ``fn``, after a warm-up load of ``fn`` itself."""
+    _warm(fn)
+    dev, host = _device_ms(fn, names, n), _host_ms(fn, n)
+    return dev, host, _sm_clock()
 
 
 def _bound(ops, nbytes):
@@ -304,32 +345,35 @@ def phase_kernels(dev):
                   "trace_closest"),
                  ("shadow occlusion", shadow, False, True, "trace_occlusion")]
         pre = {}
+        rec = scene.trace_records
         for label, r, attrs, occl, kname in cases:
-            k = trace.trace_kernel(pk, r, cfg, attrs=attrs, occl=occl)
+            k = trace.trace_kernel(rec, r, cfg, attrs=attrs, occl=occl)
             pre[label] = k
             stats = {}
             p, pms = _timed_ms(lambda: trace.trace_plain(
                 pk, r, cfg, attrs=attrs, occl=occl, stats=stats))
             ok &= _compare(label, k, p, attrs, occl, reports[kname])
-            kms, hms = _times(lambda: trace.trace_kernel(
-                pk, r, cfg, attrs=attrs, occl=occl), ("trace_kernel",))
+            kms, hms, mhz = _times(lambda: trace.trace_kernel(
+                rec, r, cfg, attrs=attrs, occl=occl), ("trace_kernel",))
             (bms, by), nbytes = _walk_bound(stats, r.shape[1], 8,
                                             2 if occl else 9)
             log(f"    time at {r.shape[1]} rays: kernel {kms:.4f} ms device "
-                f"({hms:.4f} ms host-inclusive), plain {pms:.1f} ms (one run, "
-                f"CUDA events); {stats['node_visits']} slab tests, "
-                f"{stats['slot_tests']} slot tests, {nbytes} bytes read or "
-                f"written: bound {bms:.4f} ms ({by})")
+                f"({hms:.4f} ms host-inclusive) at {_mhz(mhz)}, plain "
+                f"{pms:.1f} ms (one run, CUDA events); {stats['node_visits']} "
+                f"slab tests, {stats['slot_tests']} slot tests, {nbytes} bytes "
+                f"read or written: bound {bms:.4f} ms ({by})")
+            reports[kname].setdefault("cases", {})[f"{name}, {label}"] = dict(
+                device_ms=kms, host_ms=hms, sm_mhz=mhz, bound_ms=bms,
+                bound_by=by)
             # the main path's dispatches: bounce and shadow rays on its tree
             if name == "grid100k leaf 8" and label in (
                     "closest attrs", "shadow occlusion"):
                 reports[kname].update(ms=kms, device_ms=kms, host_ms=hms,
-                                      plain_ms=pms, bound_ms=bms, bound_by=by)
-        # kernel 3: the near-first walk on the wide tree (grid100k at leaf
-        # 8 walks wide anyway; cornell is asked to)
-        if name != "grid100k leaf 32":
-            okn = phase_near_cases(name, pk, rays, shadow, cases, pre, reports)
-            ok &= okn
+                                      sm_mhz=mhz, plain_ms=pms, bound_ms=bms,
+                                      bound_by=by)
+        # kernel 3: the near-first walk on the wide tree (grid100k walks
+        # wide anyway; cornell is asked to)
+        ok &= phase_near_cases(name, scene, rays, shadow, cases, pre, reports)
         # return_tri: the slot -> triangle map through tid, kernel path
         planes = lambda x: tuple(x[i] for i in range(8))
         kt = trace.fused_trace_planes(scene, *planes(rays)[:6], cfg,
@@ -362,7 +406,7 @@ def phase_kernels(dev):
     return ok, ok2b, reports
 
 
-def phase_near_cases(name, pk, rays, shadow, cases, pre, reports):
+def phase_near_cases(name, scene, rays, shadow, cases, pre, reports):
     """Kernel 3 on the cases of phase 2 (without the closest-hit case
     without attributes): the near kernel bitwise equal to the near plain
     version on the same packet directions, the packet directions' kernel
@@ -372,6 +416,7 @@ def phase_near_cases(name, pk, rays, shadow, cases, pre, reports):
     from tinyraytracing_tpu_torch.ops import trace
 
     cfg = RenderConfig(walk_order="near", bvh_walk="wide")
+    pk, rec = scene.bvh.packed, scene.trace_records
     ok = True
     for label, r, attrs, occl, _ in cases:
         if label == "closest no-attrs":
@@ -379,7 +424,7 @@ def phase_near_cases(name, pk, rays, shadow, cases, pre, reports):
         tile = trace.near_tile(pk, cfg, occl)
         md = trace.packet_dirs_kernel(r, tile)
         md_plain = trace.packet_dirs_plain(r, tile)
-        k = trace.trace_kernel(pk, r, cfg, attrs=attrs, occl=occl, tile=tile,
+        k = trace.trace_kernel(rec, r, cfg, attrs=attrs, occl=occl, tile=tile,
                                md=md)
         stats = {}
         p, pms = _timed_ms(lambda: trace.trace_plain(
@@ -391,24 +436,26 @@ def phase_near_cases(name, pk, rays, shadow, cases, pre, reports):
         ta, tb = k[0][diff], pre[label][0][diff]
         band = (ta - tb).abs() <= cfg.tie_eps * torch.maximum(ta.abs(),
                                                               tb.abs())
-        kms, hms = _times(lambda: trace.trace_kernel(
-            pk, r, cfg, attrs=attrs, occl=occl, tile=tile, md=md),
+        kms, hms, mhz = _times(lambda: trace.trace_kernel(
+            rec, r, cfg, attrs=attrs, occl=occl, tile=tile, md=md),
             ("trace_kernel",))
         (bms, by), nbytes = _walk_bound(stats, r.shape[1], 8,
                                         2 if occl else 9)
         log(f"    near [{name}] {label}, packets of {tile}: kernel and plain "
             f"{'bitwise equal' if same else 'DIFFER'}; {int(diff.sum())} lanes "
             f"differ from preorder ({int((~band).sum())} outside the tie band)"
-            f"; kernel {kms:.4f} ms device ({hms:.4f} ms host-inclusive), "
-            f"plain {pms:.1f} ms; {stats['node_visits']}"
+            f"; kernel {kms:.4f} ms device ({hms:.4f} ms host-inclusive) at "
+            f"{_mhz(mhz)}, plain {pms:.1f} ms; {stats['node_visits']}"
             f" slab tests, {stats['slot_tests']} slot tests, "
             f"{stats['near_sorts']} sorts, {nbytes} bytes: bound {bms:.4f} ms "
             f"({by})")
         ok &= same and bool(band.all())
+        reports["trace_near"].setdefault("cases", {})[f"{name}, {label}"] = dict(
+            device_ms=kms, host_ms=hms, sm_mhz=mhz, bound_ms=bms, bound_by=by)
         if name == "grid100k leaf 8" and label == "closest attrs":
             reports["trace_near"].update(ms=kms, device_ms=kms, host_ms=hms,
-                                         plain_ms=pms, bound_ms=bms,
-                                         bound_by=by)
+                                         sm_mhz=mhz, plain_ms=pms,
+                                         bound_ms=bms, bound_by=by)
             ok &= _packet_sums(r, tile, md, md_plain, reports["packet_dirs"])
     return ok
 
@@ -422,19 +469,21 @@ def _packet_sums(r, tile, md, md_plain, rep):
     from tinyraytracing_tpu_torch.ops import trace
 
     R, n = r.shape[1], md.shape[0]
-    dms, hms = _times(lambda: trace.packet_dirs_kernel(r, tile),
-                      ("packet_dirs",))
+    dms, hms, mhz = _times(lambda: trace.packet_dirs_kernel(r, tile),
+                           ("packet_dirs",))
     dpms = _events_ms(lambda: trace.packet_dirs_plain(r, tile), 2)
-    lib = lib_h = None
+    lib = lib_h = lib_mhz = None
     if R == n * tile:
-        lib, lib_h = _times(lambda: r[3:6].reshape(3, n, tile).sum(dim=2), None)
+        lib, lib_h, lib_mhz = _times(
+            lambda: r[3:6].reshape(3, n, tile).sum(dim=2), None)
     (dbms, dby) = _bound(3 * R, 4 * 3 * (R + n))
-    rep.update(ms=dms, device_ms=dms, host_ms=hms, plain_ms=dpms,
+    rep.update(ms=dms, device_ms=dms, host_ms=hms, sm_mhz=mhz, plain_ms=dpms,
                bound_ms=dbms, bound_by=dby, library_ms=lib,
                max_abs_err=float((md - md_plain).abs().max()))
     log(f"    packet_dirs at {R} rays, {n} packets of {tile}: kernel {dms:.5f} "
-        f"ms device ({hms:.5f} ms host-inclusive), plain {dpms:.1f} ms, "
-        f"torch.sum {lib} ms device ({lib_h} ms host-inclusive); bound "
+        f"ms device ({hms:.5f} ms host-inclusive) at {_mhz(mhz)}, plain "
+        f"{dpms:.1f} ms, torch.sum {lib} ms device ({lib_h} ms "
+        f"host-inclusive) at {lib_mhz and _mhz(lib_mhz)}; bound "
         f"{dbms:.5f} ms ({dby}), the kernel at {100 * dbms / dms:.0f}% of it")
     ok = True
     for tall in (8192, 16384):
@@ -442,10 +491,11 @@ def _packet_sums(r, tile, md, md_plain, rep):
         p = trace.packet_dirs_plain(r, tall)
         torch.cuda.synchronize()
         same = torch.equal(k, p)
-        tms = _device_ms(lambda: trace.packet_dirs_kernel(r, tall),
-                         ("packet_dirs",))
+        tms, _, mhz = _times(lambda: trace.packet_dirs_kernel(r, tall),
+                             ("packet_dirs",))
         log(f"    packet_dirs, packets of {tall}: kernel and plain "
-            f"{'bitwise equal' if same else 'DIFFER'}; {tms:.5f} ms device")
+            f"{'bitwise equal' if same else 'DIFFER'}; {tms:.5f} ms device "
+            f"at {_mhz(mhz)}")
         ok &= same
     return ok
 
@@ -531,24 +581,25 @@ def phase_intersect_kernels(name, scene, cam, kinds, gen, reports):
                    if not torch.equal(a, b)]
             hit = k[0] < 3.0e38
             err = float((k[0][hit] - p[0][hit]).abs().max()) if hit.any() else 0.0
-            kms, hms = _times(kern, (kname,))
+            kms, hms, mhz = _times(kern, (kname,))
             (bms, by), nbytes = _walk_bound(stats, R, 6, 4)
             log(f"  {kname} {label}: planes not bitwise equal {bad or 'none'}, "
                 f"{int(hit.sum())} hits; kernel {kms:.4f} ms device ({hms:.4f} "
-                f"ms host-inclusive), plain {pms:.1f} ms (CUDA events); {work}, "
+                f"ms host-inclusive) at {_mhz(mhz)}, plain {pms:.1f} ms (CUDA "
+                f"events); {work}, "
                 f"{nbytes} bytes read or written: bound {bms:.4f} ms ({by}), "
                 f"the kernel at {100 * bms / kms:.2f}% of it")
             ok &= not bad
             rep = reports[kname]
             rep["max_abs_err"] = max(rep["max_abs_err"], err)
             rep.setdefault("cases", {})[f"{name}, {label}"] = dict(
-                device_ms=kms, host_ms=hms, bound_ms=bms)
+                device_ms=kms, host_ms=hms, sm_mhz=mhz, bound_ms=bms)
             # the main path's dispatch: bounce rays on the tree the CLI
             # builds (kernel 4), on cornell (kernel 5)
             if label == "bounce" and (name, kind) in (("grid100k leaf 8", "bvh"),
                                                       ("cornell leaf 8", "slot")):
-                rep.update(ms=kms, device_ms=kms, host_ms=hms, plain_ms=pms,
-                           bound_ms=bms, bound_by=by)
+                rep.update(ms=kms, device_ms=kms, host_ms=hms, sm_mhz=mhz,
+                           plain_ms=pms, bound_ms=bms, bound_by=by)
     return ok
 
 
@@ -562,15 +613,24 @@ def phase_cli(dev, out_dir):
     come from torch.profiler of the same render run again (_render_report)."""
     import tinyraytracing_tpu_torch.render as render_mod
     from tinyraytracing_tpu_torch import cli
-    from tinyraytracing_tpu_torch.ops import trace
+    from tinyraytracing_tpu_torch.ops import bvh, trace
 
-    seen = {}
+    seen, built = {}, []
     real = render_mod.render_fused_queue_chunked
+    real_attach = bvh.attach_bvh
+
+    def attach_timed(*a, **k):
+        t0 = time.perf_counter()
+        out = real_attach(*a, **k)
+        built.append(time.perf_counter() - t0)
+        return out
+
     argv = ["--scene", "grid:100000", "--width", "1024", "--height", "1024",
             "--spp", "4", "--out", f"{out_dir}/grid100k.png"]
     torch.cuda.reset_peak_memory_stats()
     render_mod.render_fused_queue_chunked = _timed_entry(
         "render_fused_queue_chunked", real, seen)
+    bvh.attach_bvh = attach_timed
     trace.reset_launch_counts()
     try:
         t0 = time.perf_counter()
@@ -578,9 +638,12 @@ def phase_cli(dev, out_dir):
         wall = time.perf_counter() - t0
     finally:
         render_mod.render_fused_queue_chunked = real
+        bvh.attach_bvh = real_attach
     launches = dict(trace.LAUNCHES)
     log(f"phase 3: cli {' '.join(argv[:-2])} (spp cut from config 3's 512 to 4 "
         f"only to fit the smoke's time limit; the chunked queue driver) -> rc {rc}")
+    log(f"  the CLI's BVH build (attach_bvh, numpy) took "
+        f"{' + '.join(f'{b:.2f}' for b in built)} s of its wall")
     img = _render_report("queue grid:100000", wall, seen, launches, real,
                          ("trace_kernel",))
     ok = (rc == 0 and launches["trace_closest"] > 0
@@ -595,24 +658,26 @@ def phase_cli(dev, out_dir):
 
 def _profiled(fn, kernel_name):
     """Device time of one run of ``fn`` under torch.profiler (CUDA activity
-    only): (kernels, device busy ms, ms in kernels whose name holds
-    ``kernel_name``, or any of them if it is a tuple, and how many such
-    kernels it recorded: the profiler may drop records, so the callers
-    log that count beside the launches counted)."""
+    only), after a warm-up load: (kernels, device busy ms, ms in kernels
+    whose name holds ``kernel_name``, or any of them if it is a tuple, how
+    many such kernels it recorded, and the SM clock right after: the
+    profiler may drop records, so the callers log that count beside the
+    launches counted)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]):   # start-up, untimed
         torch.ones(1, device="cuda").sum()
-    torch.cuda.synchronize()
+    _warm()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    mhz = _sm_clock()
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.device_time_total for e in dev)
     names = kernel_name if isinstance(kernel_name, tuple) else (kernel_name,)
     kern = [e.device_time_total for e in dev if any(n in e.name for n in names)]
-    return len(dev), busy_us / 1e3, sum(kern) / 1e3, len(kern)
+    return len(dev), busy_us / 1e3, sum(kern) / 1e3, len(kern), mhz
 
 
 def _traced_rays(render_args):
@@ -698,8 +763,8 @@ def phase_cli_scan(dev, out_dir, size=1024):
         real_render(*a, **k)                  # the same render, warm
         torch.cuda.synchronize()
         secs_again = time.perf_counter() - t0
-        n_dev, busy_ms, kern_ms, n_kern = _profiled(lambda: real_render(*a, **k),
-                                                    kname)
+        n_dev, busy_ms, kern_ms, n_kern, mhz = _profiled(
+            lambda: real_render(*a, **k), kname)
         primary, shadow = _traced_rays(seen["args"])
         rays = primary + shadow
         render_ms = 1e3 * secs
@@ -714,7 +779,7 @@ def phase_cli_scan(dev, out_dir, size=1024):
             f"{n_kern} recorded launches of {kname} = "
             f"{100 * kern_ms / render_ms:.1f}% of the unprofiled "
             f"render, device busy {busy_ms:.1f} ms: the card idles "
-            f"{100 * (1 - busy_ms / render_ms):.0f}%")
+            f"{100 * (1 - busy_ms / render_ms):.0f}%; {_mhz(mhz)} after it")
         log(f"  kernel launches {counts}; peak device memory "
             f"{peak / 2**20:.1f} MiB; image mean {mean:.6g}, shape "
             f"{tuple(img.shape)}")
@@ -749,20 +814,21 @@ def _render_report(label, wall, seen, counts, stats_fn, kernels):
     and kernel and busy time from torch.profiler of the same render run
     again; returns the image."""
     a, k = seen["args"]
-    n_dev, busy_ms, kern_ms, n_kern = _profiled(lambda: stats_fn(*a, **k),
-                                                kernels)
+    peak = torch.cuda.max_memory_allocated()        # the render's, unprofiled
+    n_dev, busy_ms, kern_ms, n_kern, mhz = _profiled(
+        lambda: stats_fn(*a, **k), kernels)
     img, secs = seen["img"], seen["seconds"]
     render_ms = 1e3 * secs
     log(f"  {label}: wall {wall:.2f}s; render {secs:.3f}s, {seen['rays']:.0f} "
         f"traced rays, {seen['rays'] / secs:.4g} rays/s; peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; image mean "
+        f"{peak / 2**20:.1f} MiB; image mean "
         f"{float(img.mean()):.6g}, shape {tuple(img.shape)}")
     log(f"  kernel launches {counts}; the same render under torch.profiler: "
         f"{n_dev} device ops, {kern_ms:.1f} ms in {n_kern} recorded launches "
         f"of {'/'.join(kernels)} = "
         f"{100 * kern_ms / render_ms:.1f}% of the unprofiled render, device "
         f"busy {busy_ms:.1f} ms: the card idles "
-        f"{100 * (1 - busy_ms / render_ms):.0f}%")
+        f"{100 * (1 - busy_ms / render_ms):.0f}%; {_mhz(mhz)} after it")
     return img
 
 
@@ -986,14 +1052,17 @@ def phase_render_vs_render(dev):
 
 def kernel_times(tree):
     """``--kernel-times TREE``: device and host-inclusive times of the
-    kernels whose design the last change replaced, as the package in
-    ``TREE`` runs them, with this script's timing code: the packet sums of
-    262,144 rays in packets of 2048 (beside torch.sum) and of 16384, and
-    the packet-BVH kernel on phase 2b's three kinds of rays on grid100k at
-    leaf 8 and 32 and on cornell. Prints one JSON object: per case
-    [device ms, host-inclusive ms, digest of the outputs] (no digest for
-    torch.sum, and none for the packets of 16384, whose order of adds
-    the packet-sum repair changed)."""
+    kernels the last changes redesigned, as the package in ``TREE`` runs
+    them, with this script's timing code: the trace kernels through
+    ``ops.trace.fused_trace_planes`` (closest hit with attributes on phase
+    2's 262,144 camera + bounce rays, occlusion on its 262,144 shadow rays,
+    each preorder and near-first) on grid100k at leaf 8 and 32 and on
+    cornell; the packet sums of 262,144 rays in packets of 2048 (beside
+    torch.sum) and of 16384; and the packet-BVH kernel on phase 2b's three
+    kinds of rays on the same scenes. Prints one JSON object: per case
+    [device ms, host-inclusive ms, digest of the outputs, SM clock MHz
+    after the set] (no digest for torch.sum, and none for the packets of
+    16384, whose order of adds the packet-sum repair changed)."""
     import hashlib
 
     sys.path.insert(0, os.path.abspath(tree))
@@ -1008,38 +1077,178 @@ def kernel_times(tree):
             h.update(x.contiguous().cpu().numpy().tobytes())
         return h.hexdigest()[:16]
 
+    def case(fn, names, checked=True):
+        dev, host, mhz = _times(fn, names)
+        return [dev, host, digest(fn()) if checked else "", mhz]
+
     res = {"package": os.path.dirname(tinyraytracing_tpu_torch.__file__)}
-    gen = torch.Generator().manual_seed(7)
+    cfg = RenderConfig()
+    orders = {"preorder": cfg,
+              "near": RenderConfig(walk_order="near", bvh_walk="wide")}
+    gen = torch.Generator().manual_seed(2024)
+    for name, scene, cam in _phase2_scenes():
+        scene = scene.to("cuda")
+        rays, shadow = _probe_rays(scene, cam, 131072, gen, cfg)
+        for order, ocfg in orders.items():
+            for query, r in (("closest", rays), ("occlusion", shadow)):
+                fn = lambda: trace.fused_trace_planes(
+                    scene, *r[:6], ocfg, t_bound=r[6], target_mtl=r[7],
+                    query=query)
+                res[f"trace {query} {order} {name}"] = case(fn, ("trace_kernel",))
+        probe = _scan_probe_rays(scene, cam, torch.Generator().manual_seed(2024))
+        for label, r in probe.items():
+            fn = lambda: bi.bvh_intersect_planes(scene, r, cfg)
+            res[f"bvh_intersect {name}, {label}"] = case(fn, ("bvh_intersect",))
     R = 262144
-    d = torch.randn(3, R, generator=gen)
+    d = torch.randn(3, R, generator=torch.Generator().manual_seed(7))
     rays = torch.zeros(8, R)
     rays[3:6] = d / d.norm(dim=0)
     rays = rays.cuda()
     for tile in (2048, 16384):
-        fn = lambda: trace.packet_dirs_kernel(rays, tile)
-        res[f"packet_dirs, packets of {tile}"] = [
-            *_times(fn, ("packet_dirs",)), digest(fn()) if tile <= 4096 else ""]
+        res[f"packet_dirs, packets of {tile}"] = case(
+            lambda: trace.packet_dirs_kernel(rays, tile), ("packet_dirs",),
+            tile <= 4096)
     n = R // 2048
-    res["torch.sum, packets of 2048"] = [
-        *_times(lambda: rays[3:6].reshape(3, n, 2048).sum(dim=2), None), ""]
-    cfg = RenderConfig()
-    for name, scene, cam in _phase2_scenes():
-        scene = scene.to("cuda")
-        probe = _scan_probe_rays(scene, cam, torch.Generator().manual_seed(2024))
-        for label, r in probe.items():
-            fn = lambda: bi.bvh_intersect_planes(scene, r, cfg)
-            res[f"bvh_intersect {name}, {label}"] = [
-                *_times(fn, ("bvh_intersect",)), digest(fn())]
+    res["torch.sum, packets of 2048"] = case(
+        lambda: rays[3:6].reshape(3, n, 2048).sum(dim=2), None, False)
     print(json.dumps(res), flush=True)
     return 0
+
+
+def _walk_launch(lib, rec, rays, cfg, attrs, occl, tile, md, refill):
+    """One launch of trace.cu's ``trt_trace`` from ``lib`` (the plain or
+    the measurement build), with or without the resident blocks' refill."""
+    from tinyraytracing_tpu_torch.ops import trace
+
+    R = rays.shape[1]
+    out = torch.empty((2 if occl else 9, R), device=rays.device)
+    counter = torch.empty(1, dtype=torch.int32, device=rays.device)
+    err = lib.trt_trace(
+        rays.data_ptr(), rec.node.data_ptr(), rec.slot.data_ptr(),
+        rec.shade.data_ptr(), rec.slot_id.data_ptr(), out.data_ptr(),
+        counter.data_ptr() if refill else None, R,
+        2 if occl else (0 if attrs else 1), None if md is None else md.data_ptr(),
+        tile, rec.root_kids, trace.near_pause(rec, md),
+        cfg.t_min, cfg.n_dot_d_min, 1.0 + cfg.tie_eps,
+        torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"trace kernel launch failed: cudaError {err}")
+    return out
+
+
+def profile_walk(out_path):
+    """``--profile-walk``: where the trace kernels' time goes, on phase 2's
+    rays of grid100k at leaf 8 (the main path's tree). For each of kernels
+    1-3 (closest with attributes and occlusion, preorder and near-first):
+    the device ms of the kernel launched as a plain grid (one ray per
+    thread) and with its resident blocks refilling lanes (what the wrapper
+    launches), both bitwise equal to the plain walk; then, from trace.cu
+    built with -DTRT_PROFILE and launched as a plain grid, per-ray clock64
+    counts summed over warps of 32 rays: a warp's cycles (its slowest
+    lane's), the shares of its node and leaf loops, how many interior
+    steps and slot tests the warp runs against what its mean lane needs,
+    and the cycles of one warp step; and, launched both ways, the SIMT
+    efficiency of the node loop's iterations and of the slot tests (the
+    mean share of a warp's lanes active in them)."""
+    import ctypes
+
+    from tinyraytracing_tpu_torch.config import RenderConfig
+    from tinyraytracing_tpu_torch.ops import kernels, trace
+
+    libs = {}
+    for key, defines in (("plain", ()), ("profile", ("TRT_PROFILE",))):
+        lib = kernels.library("trace.cu", defines)
+        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.trt_trace.argtypes = [P, P, P, P, P, P, P, I, I, P, I, I, I, F, F,
+                                  F, P]
+        lib.trt_trace.restype = I
+        libs[key] = lib
+    libs["profile"].trt_set_prof.argtypes = [ctypes.c_void_p]
+    cfg = RenderConfig()
+    near = RenderConfig(walk_order="near", bvh_walk="wide")
+    name, scene, cam = next(_phase2_scenes())
+    scene = scene.to("cuda")
+    rays, shadow = _probe_rays(scene, cam, 131072,
+                               torch.Generator().manual_seed(2024), cfg)
+    pk, rec = scene.bvh.packed, scene.trace_records
+    R = rays.shape[1]
+    buf = torch.zeros(12 * R + 512, dtype=torch.int64, device="cuda")
+    if libs["profile"].trt_set_prof(buf.data_ptr()):
+        raise RuntimeError("trt_set_prof failed")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip()
+    log(f"{smi}; {name}, {rays.shape[1]} camera + bounce rays, "
+        f"{shadow.shape[1]} shadow rays")
+    table = {}
+    for label, r, attrs, occl, c in (
+            ("kernel 1: closest, preorder", rays, True, False, cfg),
+            ("kernel 2: occlusion, preorder", shadow, False, True, cfg),
+            ("kernel 3: closest, near", rays, True, False, near),
+            ("kernel 3: occlusion, near", shadow, False, True, near)):
+        tile, md = trace.walk_packets(pk, r, c, occl)
+        want = trace.trace_plain(pk, r, c, attrs=attrs, occl=occl, tile=tile,
+                                 md=md)
+        row = {}
+        for how, lib, refill in (("grid", "plain", False),
+                                 ("refill", "plain", True),
+                                 ("profile", "profile", False)):
+            fn = lambda: _walk_launch(libs[lib], rec, r, c, attrs, occl,
+                                      tile, md, refill)
+            same = torch.equal(fn(), want)
+            dev, _, mhz = _times(fn, ("trace_kernel",))
+            row[how] = dict(device_ms=dev, sm_mhz=mhz, equal=same)
+        simt = {}
+        for how, refill in (("refill", True), ("grid", False)):  # grid last
+            buf.zero_()
+            _walk_launch(libs["profile"], rec, r, c, attrs, occl, tile, md,
+                         refill)
+            w = buf[8 * R:].view(-1, 4).double().sum(dim=0)
+            simt[how] = (float(w[0] / (32 * w[1] / 2 ** 20)),
+                         float(w[2] / (32 * w[3] / 2 ** 20)))
+        q = buf[:8 * R].view(-1, 32, 8).double()        # (warps, lanes, 8)
+        wmax = q.max(dim=1).values
+        cyc = wmax[:, 0].sum()
+        prof = dict(
+            warp_cycles_mean=float(wmax[:, 0].mean()),
+            warp_cycles_max=float(wmax[:, 0].max()),
+            node_loop_share=float(wmax[:, 1].sum() / cyc),
+            leaf_loop_share=float(wmax[:, 2].sum() / cyc),
+            lane_steps_mean=float(q[:, :, 3].mean()),
+            warp_steps_mean=float(wmax[:, 3].mean()),
+            step_simt=float(q[:, :, 3].sum() / (32 * wmax[:, 3].sum())),
+            lane_slots_mean=float(q[:, :, 5].mean()),
+            warp_slots_mean=float(wmax[:, 5].mean()),
+            slot_simt=float(q[:, :, 5].sum() / (32 * wmax[:, 5].sum())),
+            cycles_per_warp_step=float(wmax[:, 1].sum() / wmax[:, 3].sum()),
+            cycles_per_warp_slot=float(wmax[:, 2].sum() / wmax[:, 5].sum()),
+            node_loop_simt_grid=simt["grid"][0],
+            slot_simt_grid=simt["grid"][1],
+            node_loop_simt_refill=simt["refill"][0],
+            slot_simt_refill=simt["refill"][1])
+        row["counts"] = prof
+        table[label] = row
+        log(f"  {label}: grid {row['grid']['device_ms']:.4f} ms, refill "
+            f"{row['refill']['device_ms']:.4f} ms, measurement build "
+            f"{row['profile']['device_ms']:.4f} ms (device, at "
+            f"{_mhz(row['refill']['sm_mhz'])}); bitwise equal to plain: "
+            f"{all(v['equal'] for k, v in row.items() if k != 'counts')}")
+        log("    per warp of 32 rays (grid): "
+            + ", ".join(f"{k} {v:.3g}" for k, v in prof.items()))
+    if out_path:
+        with open(out_path, "w") as f:
+            json.dump({"device": smi, "cases": table}, f, indent=1)
+    return 0 if all(v["equal"] for row in table.values()
+                    for k, v in row.items() if k != "counts") else 1
 
 
 def compare(parent, out_path):
     """``--compare PARENT``: ``--kernel-times`` of the package in PARENT (a
     ``git archive`` of the parent commit, unpacked) and of this tree, in
     turns (parent, this, this, parent), each in its own process, so both
-    are timed on the same card; prints the device times side by side and
-    fails unless the two trees' outputs are bitwise equal in every case."""
+    are timed on the same card; prints the device times side by side, each
+    with the SM clock it was read at, and fails unless the two trees'
+    outputs are bitwise equal in every case."""
     here = os.path.dirname(os.path.abspath(__file__))
     runs = []
     for tree in (parent, here, here, parent):
@@ -1055,8 +1264,8 @@ def compare(parent, out_path):
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True).stdout.strip()
-    log(f"{smi}; device ms per launch (host-inclusive ms in brackets); "
-        f"runs in the order parent, this, this, parent")
+    log(f"{smi}; device ms per launch (host-inclusive ms in brackets; SM "
+        f"MHz after the set); runs in the order parent, this, this, parent")
     ok, table = True, {}
     for key in runs[0]:
         old = [runs[0][key], runs[3][key]]
@@ -1069,12 +1278,16 @@ def compare(parent, out_path):
                           device_ms=[r[0] for r in new],
                           parent_host_ms=[r[1] for r in old],
                           host_ms=[r[1] for r in new],
+                          parent_sm_mhz=[r[3] for r in old],
+                          sm_mhz=[r[3] for r in new],
                           speedup=om / nm,
                           outputs_equal=same if checked else None)
+        low = min(r[3] for r in old + new) < LOW_MHZ
         log(f"  {key}: parent {old[0][0]:.5f} / {old[1][0]:.5f} "
             f"[{old[0][1]:.5f} / {old[1][1]:.5f}], this {new[0][0]:.5f} / "
             f"{new[1][0]:.5f} [{new[0][1]:.5f} / {new[1][1]:.5f}]: "
-            f"{om / nm:.2f}x; outputs "
+            f"{om / nm:.2f}x; MHz {[r[3] for r in old]} / {[r[3] for r in new]}"
+            f"{f' (below {LOW_MHZ:,} MHz)' if low else ''}; outputs "
             f"{'not compared' if not checked else 'bitwise equal' if same else 'DIFFER'}")
     if out_path:
         with open(out_path, "w") as f:
@@ -1088,7 +1301,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--compare", metavar="PARENT",
                     help="time the redesigned kernels against the tree PARENT")
-    ap.add_argument("--out", help="with --compare: write the table here (JSON)")
+    ap.add_argument("--profile-walk", action="store_true",
+                    help="where the trace kernels' time goes (clock64 counts)")
+    ap.add_argument("--out", help="with --compare or --profile-walk: write "
+                                  "the table here (JSON)")
     ap.add_argument("--kernel-times", metavar="TREE", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -1098,6 +1314,8 @@ def main(argv=None) -> int:
         return kernel_times(args.kernel_times)
     if args.compare:
         return compare(os.path.abspath(args.compare), args.out)
+    if args.profile_walk:
+        return profile_walk(args.out)
     from tinyraytracing_tpu_torch.ops import kernels
 
     dev = torch.device("cuda")

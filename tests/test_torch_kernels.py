@@ -63,17 +63,19 @@ def _rays(n, device, shadow_scene=None):
 @pytest.mark.parametrize("name", ["cornell", "grid", "grid32"])
 def test_kernels_bitwise_equal_plain(name, shadow, device):
     """Both walk orders; the near-first walk in packets of 512 rays, each
-    with its packet's direction sum, the same tensor for both sides."""
+    with its packet's direction sum, the same tensor for both sides; and
+    the preorder walk at t_min 0, where the kernel holds one leaf at a
+    time."""
     scene = _scene(name, device)
     pk = scene.bvh.packed
     rays = _rays(4096, device, scene if shadow else None)
     near = RenderConfig(walk_order="near", bvh_walk="wide", ray_tile=512)
-    for cfg in (RenderConfig(), near):
+    for cfg in (RenderConfig(), near, RenderConfig(t_min=0.0)):
         for occl, attrs in ((False, True), (False, False), (True, False)):
             tile, md = trace.walk_packets(pk, rays, cfg, occl)
             assert (md is not None) == (cfg is near)
-            k = trace.trace_kernel(pk, rays, cfg, attrs=attrs, occl=occl,
-                                   tile=tile, md=md)
+            k = trace.trace_kernel(scene.trace_records, rays, cfg, attrs=attrs,
+                                   occl=occl, tile=tile, md=md)
             p = trace.trace_plain(pk, rays, cfg, attrs=attrs, occl=occl,
                                   tile=tile, md=md)
             torch.cuda.synchronize()

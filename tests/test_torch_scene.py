@@ -198,3 +198,24 @@ def test_constructors_default_to_the_card(make):
         if not torch.cuda.is_available():
             with pytest.raises((AssertionError, RuntimeError)):
                 fn(*args, 8, 8)
+
+
+def test_cli_builds_the_jax_cli_tree():
+    """``--scene grid:N`` renders on the tree the JAX CLI builds at the same
+    leaf size (``attach_bvh`` of the scene's float32 vertices), not on the
+    one ``quad_grid`` built from its float64 mesh, whose node boxes differ
+    in the last bits: every packed array equal."""
+    from tinyraytracing_tpu_torch import cli
+
+    args = cli.build_parser().parse_args(
+        ["--scene", "grid:6000", "--leaf-size", "8", "--device", "cpu"])
+    scene, _, config = cli.build_scene(args)
+    assert config.leaf_size == 8
+    want = jbvh.attach_bvh(jproc.quad_grid(6000)[0], JConfig(leaf_size=8))
+    jp, tp = want.bvh.packed, scene.bvh.packed
+    for k in ("P", "tid", "node_box", "node_meta", "PS", "WN"):
+        np.testing.assert_array_equal(getattr(tp, k).numpy(),
+                                      np.asarray(getattr(jp, k)), err_msg=k)
+    # the tree quad_grid builds for itself is another one
+    own = tproc.quad_grid(6000, device="cpu")[0].bvh.packed
+    assert not torch.equal(own.WN, tp.WN)

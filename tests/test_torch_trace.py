@@ -98,11 +98,18 @@ def test_walk_order_near_is_not_ported():
 
 
 def test_plain_walk_counts_what_the_kernel_reads():
-    """The stats behind the kernels' bounds: each float of the tree and the
-    payload counted once, only where the walk reads it — the shading rows
-    only for closest hits with attributes, never the whole arrays."""
+    """The stats behind the kernels' bounds: each record of
+    ``Scene.trace_records`` counted once, only where the walk reads it —
+    the occupied children of the wide nodes it expands, the slots it tests,
+    a shading record only where a slot replaces with attributes, else the
+    material where a slot may replace or kill, the slot id of each best
+    record — equal to what an emulation of the kernel's walk reads
+    (``tests/torch_trace_emulate.py``, one leaf at a time), in both walk
+    orders, with the near-first occlusion walk counted on its own."""
+    from tests.torch_trace_emulate import emulate
+
     _, ts = scene_pair("grid")
-    pk = ts.bvh.packed
+    pk, rec = ts.bvh.packed, ts.trace_records
     rng = np.random.default_rng(24)
     org, d = random_rays(rng, 256, *RAYS["grid"])
     planes = [torch.from_numpy(np.ascontiguousarray(a[:, k], np.float32))
@@ -110,14 +117,25 @@ def test_plain_walk_counts_what_the_kernel_reads():
     rays = torch.stack([*planes, torch.full((256,), 3.0e38),
                         torch.full((256,), -2.0)]).contiguous()
     got = {}
-    for attrs, occl in ((True, False), (False, False), (False, True)):
-        stats = {}
-        ttrace.trace_plain(pk, rays, RenderConfig(), attrs=attrs, occl=occl,
-                           stats=stats)
-        got[attrs, occl] = stats
-    full, bare, occlusion = got[True, False], got[False, False], got[False, True]
+    for order in ("preorder", "near"):
+        cfg = RenderConfig(walk_order=order, bvh_walk="wide", ray_tile=128)
+        for attrs, occl in ((True, False), (False, False), (False, True)):
+            tile, md = ttrace.walk_packets(pk, rays, cfg, occl)
+            stats, reads = {}, {}
+            ttrace.trace_plain(pk, rays, cfg, attrs=attrs, occl=occl,
+                               tile=tile, md=md, stats=stats)
+            emulate(rec, rays, cfg, attrs=attrs, occl=occl, tile=tile, md=md,
+                    warp=1, reads=reads)
+            assert stats["scene_bytes"] == reads["bytes"], (order, attrs, occl)
+            assert stats["slot_tests"] == reads["slot_tests"]
+            got[order, attrs, occl] = stats
+    full, bare, occlusion = (got["preorder", a, o] for a, o in (
+        (True, False), (False, False), (False, True)))
     assert full["node_visits"] == bare["node_visits"] > 256
     assert full["slot_tests"] == bare["slot_tests"] > 256
     assert occlusion == bare              # no target: the same walk and reads
     assert 0 < bare["scene_bytes"] < full["scene_bytes"]
-    assert full["scene_bytes"] < (pk.WN.nbytes + pk.PS.nbytes) / 2
+    records = rec.node.nbytes + rec.slot.nbytes + rec.shade.nbytes
+    assert full["scene_bytes"] < records / 2
+    near = got["near", False, True]       # the near occlusion walk's own
+    assert near["near_sorts"] > 0 and 0 < near["scene_bytes"] <= records

@@ -64,17 +64,20 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
-
+def build_scene(args):
+    """(scene, camera, config) of the parsed arguments ``args``: the render
+    config from the flags, the procedural or file scene on ``--device``,
+    and, where the renderer needs one, a BVH built at ``--leaf-size``
+    ("auto" is 8 here). The BVH is always built from the scene's float32
+    vertices, as the JAX CLI builds it, so ``--scene grid:N`` renders on
+    the JAX CLI's tree, not on the one ``quad_grid`` built from its float64
+    mesh. Without a CUDA device and without ``--device cpu`` it exits with
+    an error."""
     import torch
 
     from tinyraytracing_tpu_torch.config import RenderConfig
     from tinyraytracing_tpu_torch.models.scene import load_scene
-    from tinyraytracing_tpu_torch.render import render_image
 
-    logging.basicConfig(level=logging.INFO, format="%(message)s")
-    log = logging.getLogger("tinyraytracing_tpu_torch")
     if args.scene is None and not (args.basedir and args.xml and args.obj and args.mtl):
         raise SystemExit("either --scene or all of --basedir/--xml/--obj/--mtl required")
     rel = lambda p: p if os.path.isabs(p) else os.path.join(args.basedir, p)
@@ -124,9 +127,18 @@ def main(argv=None) -> int:
         leaf = (config.leaf_size if args.leaf_size == "auto"
                 else int(args.leaf_size))
         config = config.replace(leaf_size=leaf)
-        if scene.bvh is None or (scene.bvh.leaf_size, scene.bvh.aabb_pad) != (
-                leaf, config.aabb_pad):
-            scene = attach_bvh(scene, config)
+        scene = attach_bvh(scene, config)
+    return scene, cam, config
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+
+    from tinyraytracing_tpu_torch.render import render_image
+
+    logging.basicConfig(level=logging.INFO, format="%(message)s")
+    log = logging.getLogger("tinyraytracing_tpu_torch")
+    scene, cam, config = build_scene(args)
     if args.width or args.height:
         cam = dataclasses.replace(
             cam, width=args.width or cam.width, height=args.height or cam.height
@@ -134,7 +146,7 @@ def main(argv=None) -> int:
     log.info(
         "scene: %d triangles, %d materials, %d lights; image %dx%d @ %d spp "
         "on %s", scene.num_triangles, scene.num_materials, scene.num_lights,
-        cam.width, cam.height, args.spp, device,
+        cam.width, cam.height, args.spp, args.device,
     )
     if scene.bvh is not None:
         log.info("BVH: %d nodes, %d wide nodes", scene.bvh.n_nodes,

@@ -22,9 +22,9 @@ renderers' trace:
   JAX package's rules, so the packets are the JAX package's
   (``ops/trace.py``); ``trace_super_rays`` still changes nothing.
 
-``detach_sampling`` only steers gradients. Not ported, so a render raises
-``NotImplementedError`` naming the ROADMAP.md item (``check_ported``):
-``accum_dtype`` other than "float32".
+``detach_sampling`` only steers gradients, and ``accum_dtype`` is read
+nowhere, as in the JAX package (which declares it and never reads it):
+every value renders the float32 image.
 """
 
 from __future__ import annotations
@@ -74,7 +74,8 @@ class RenderConfig:
     shadow_compact: str = "auto"   # auto | on | off
     walk_order: str = "preorder"   # preorder | near
     trace_super_rays: int = 131072
-    # differentiation (not ported yet)
+    # differentiation (gradients are not ported yet; accum_dtype is read
+    # nowhere, as in the JAX package)
     detach_sampling: bool = True
     accum_dtype: str = "float32"
 
@@ -83,20 +84,3 @@ class RenderConfig:
 
 
 DEFAULT_CONFIG = RenderConfig()
-
-# field -> (values the port serves, what the other values need)
-_UNPORTED = {
-    "accum_dtype": (("float32",),
-                    "reduced-precision accumulation (ROADMAP.md, modules to "
-                    "port: diff/)"),
-}
-
-
-def check_ported(config: RenderConfig) -> None:
-    """Raise NotImplementedError if ``config`` asks for something the port
-    does not have yet, instead of rendering without it."""
-    for field, (ported, what) in _UNPORTED.items():
-        value = getattr(config, field)
-        if value not in ported:
-            raise NotImplementedError(
-                f"{field}={value!r}: {what} is not ported yet")

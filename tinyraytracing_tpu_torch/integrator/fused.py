@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from tinyraytracing_tpu_torch.config import (
-    CAMERA, DIFFUSE, INVALID, SPECULAR, TRANSMISSION, RenderConfig, check_ported,
+    CAMERA, DIFFUSE, INVALID, SPECULAR, TRANSMISSION, RenderConfig,
 )
 from tinyraytracing_tpu_torch.models.camera import Camera, camera_basis
 from tinyraytracing_tpu_torch.ops import vec
@@ -303,7 +303,6 @@ def render_fused(scene, cam: Camera, key, config: RenderConfig, spp: int,
     linear image in SLOT order and the traced-ray count (float32 0-d).
     Requires scene.bvh with packed leaves.
     """
-    check_ported(config)
     dev = scene.device
     f32, i64 = torch.float32, torch.int64
     c = lambda x: torch.tensor(x, dtype=f32, device=dev)

@@ -38,7 +38,6 @@ from tinyraytracing_tpu_torch.config import (
     SPECULAR,
     TRANSMISSION,
     RenderConfig,
-    check_ported,
 )
 from tinyraytracing_tpu_torch.integrator.fused import (
     _FAR,
@@ -92,7 +91,6 @@ def _queue_setup(scene, cam: Camera, key, config: RenderConfig, spp: int,
     iteration and queue counters as ints), the loop's condition and one
     iteration. Shared by the one-shot and the chunked renderer, so both
     run the same body. An explicit ``max_iters`` replaces the default."""
-    check_ported(config)
     dev = scene.device
     f32, i64 = torch.float32, torch.int64
     c = lambda x: torch.tensor(x, dtype=f32, device=dev)

@@ -179,6 +179,17 @@ class Scene:
 
         return bvh_records(self.bvh.packed)
 
+    @functools.cached_property
+    def trace_records(self):
+        """The trace kernels' layout of the scene's BVH
+        (``ops.trace.trace_records``: child records of the wide nodes, the
+        occupied slots' test records, which are ``bvh_records.slot``, and
+        their shading records), on the scene's device; built at first use
+        and kept with the scene."""
+        from tinyraytracing_tpu_torch.ops.trace import trace_records
+
+        return trace_records(self.bvh.packed, self.bvh_records)
+
     def to(self, device) -> "Scene":
         return _to(self, device)
 

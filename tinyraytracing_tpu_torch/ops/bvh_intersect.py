@@ -156,11 +156,13 @@ class BvhRecords:
     of the leaf's first slot record for a leaf (a leaf's skip link is the
     next node). ``slot`` (n_records, 16) float32, one 64-byte record per
     occupied slot, its 16 attributes in P's order, each leaf's records
-    contiguous and in slot order. ``tid`` is the packed tree's slot ->
-    triangle map."""
+    contiguous and in slot order; ``slot_id`` (n_records,) int32, the slot
+    id 32*leaf + s of each record (ascending). ``tid`` is the packed tree's
+    slot -> triangle map."""
 
     node: torch.Tensor
     slot: torch.Tensor
+    slot_id: torch.Tensor
     tid: torch.Tensor
     n_nodes: int
 
@@ -189,7 +191,9 @@ def bvh_records(pk) -> BvhRecords:
     a = torch.arange(16, device=dev)
     col = rec_leaf[:, None] * 128 + (a % 4) * SLOT + s[:, None]
     slot = pk.P[a // 4, col].contiguous()
-    return BvhRecords(node=node, slot=slot, tid=pk.tid, n_nodes=pk.n_nodes)
+    return BvhRecords(node=node, slot=slot,
+                      slot_id=(rec_leaf * SLOT + s).to(torch.int32),
+                      tid=pk.tid, n_nodes=pk.n_nodes)
 
 
 def _lib():

@@ -31,7 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v")
 SOURCES = ("trace.cu", "bvh_intersect.cu", "slot_intersect.cu")
 
-_libs: dict[str, ctypes.CDLL] = {}
+_libs: dict[tuple[str, tuple[str, ...]], ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -44,22 +44,22 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (needed to build the CUDA kernels)")
 
 
-def _lib_path(source: str) -> Path:
+def _lib_path(source: str, defines: tuple[str, ...] = ()) -> Path:
     h = hashlib.sha256((CSRC / source).read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):     # the shared headers
         h.update(header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join((*NVCC_FLAGS, *defines)).encode())
     return BUILD_DIR / f"{Path(source).stem}_{h.hexdigest()[:16]}.so"
 
 
-def _build_one(source: str) -> tuple[Path, str]:
-    out = _lib_path(source)
+def _build_one(source: str, defines: tuple[str, ...] = ()) -> tuple[Path, str]:
+    out = _lib_path(source, defines)
     if out.exists():
         return out, "cached"
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-           str(CSRC / source)]
+    cmd = [_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-I",
+           str(CSRC), "-o", str(tmp), str(CSRC / source)]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed on {source}:\n{res.stdout}{res.stderr}")
@@ -77,11 +77,13 @@ def build() -> tuple[float, dict[str, str]]:
     return time.perf_counter() - t0, logs
 
 
-def library(source: str) -> ctypes.CDLL:
-    """The loaded library of ``source`` (built first if needed)."""
-    lib = _libs.get(source)
+def library(source: str, defines: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The loaded library of ``source`` (built first if needed), compiled
+    with the macros ``defines`` (e.g. ``("TRT_PROFILE",)`` for trace.cu's
+    measurement build) beside the plain build."""
+    lib = _libs.get((source, defines))
     if lib is None:
-        path, _ = _build_one(source)
+        path, _ = _build_one(source, defines)
         lib = ctypes.CDLL(str(path))
-        _libs[source] = lib
+        _libs[source, defines] = lib
     return lib

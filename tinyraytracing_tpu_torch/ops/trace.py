@@ -6,14 +6,20 @@ the Pallas kernels reached from ``pallas_trace.fused_trace_planes``
 (closest hit: ``_kernel_wide_*``/``_kernel_smem*``/``_kernel_hbm`` with the
 slot loop ``_leaf_slots.run_slots``; occlusion: the same with
 ``run_slots_occl``; and both under ``walk_order="near"``, the near-first
-child order of ``_interior_push`` with pop-time culling). The source note
-in ``trace.cu`` says what bounds them on an H100 and what the design does
-about it.
+child order of ``_interior_push`` with pop-time culling). They read a
+layout of the same tree made for the card (``TraceRecords``, built once
+per scene as ``Scene.trace_records``), walk in two loops (holding leaves
+under preorder; under near-first on leaves of up to 8 slots the last few
+walkers pause, ``near_pause``), and on trees of more than one wide node
+refill the lanes whose walks end from a ray counter; the source note in
+``trace.cu`` says why that is exact, what bounds them on an H100 and
+what the design does about it.
 
 Beside the kernels lives their plain PyTorch version, ``trace_plain``: the
-same per-ray wide walk, vectorised over rays with an (R, S) stack tensor,
-looping until every stack is empty. The wrappers take it only for tensors
-on the CPU; on a CUDA tensor they launch the kernel or raise.
+same per-ray wide walk over the JAX layout (WN / PS), vectorised over rays
+with an (R, S) stack tensor, one leaf at a time, looping until every stack
+is empty. The wrappers take it only for tensors on the CPU; on a CUDA
+tensor they launch the kernel or raise.
 
 Semantics (identical to the JAX package's kernel, see its docstrings):
 per-ray t-bound start (``t_bound``), Woop-plane slot test with
@@ -43,6 +49,7 @@ ignores ``walk_order``, and so does the port.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -204,10 +211,12 @@ def trace_plain(pk, rays: torch.Tensor, config: RenderConfig, *,
     "slot_tests" (occupied slots of the leaves popped), as the kernel runs
     them up to its early exit after a kill, "near_keys" and "near_sorts"
     (the near-first walk's keys and 19-exchange sorts), and "scene_bytes"
-    (the WN and PS floats the kernel reads, each counted once: the rows it
-    pops, the P attributes of the slots it tests, a slot's material only
-    where it may replace or kill, its shading attributes only where it
-    replaces)."""
+    (what the kernel reads of ``TraceRecords``, each record counted once:
+    32 bytes per occupied child of each wide node it expands, the 64-byte
+    test record of each slot it tests, a slot's 64-byte shading record
+    where it replaces with attributes, else its 4-byte material where it
+    may replace or kill, and the 4-byte slot id of each ray's best record
+    with attributes)."""
     f32 = torch.float32
     dev = rays.device
     R = rays.shape[1]
@@ -390,12 +399,15 @@ def trace_plain(pk, rays: torch.Tensor, config: RenderConfig, *,
         stats["slot_tests"] = stats.get("slot_tests", 0) + int(slots)
         stats["near_keys"] = stats.get("near_keys", 0) + int(keys)
         stats["near_sorts"] = stats.get("near_sorts", 0) + int(sorts)
-        # a row's 8 child metas, plus 6 box floats per occupied child; a
-        # slot's 16 P attributes, its material, its 15 shading attributes
-        occupied = (WN[seen["rows"]][:, 6::8] != -1.0).sum()
-        nbytes = 4 * (8 * int(seen["rows"].sum()) + 6 * int(occupied)
-                      + 16 * int(seen["P"].sum()) + int(seen["mtl"].sum())
-                      + 15 * int(seen["shading"].sum()))
+        # a 32-byte record per occupied child of a row; a slot's 64-byte
+        # test record, its shading record or else its material; the slot
+        # id of each ray's best record
+        occupied = int((WN[seen["rows"]][:, 6:64:8] != -1.0).sum())
+        mtl_only = seen["mtl"] & ~seen["shading"]
+        best = state[8] if attrs and not occl else state[0][:0]
+        nbytes = (32 * occupied + 64 * int(seen["P"].sum())
+                  + 64 * int(seen["shading"].sum()) + 4 * int(mtl_only.sum())
+                  + 4 * torch.unique(best[best >= 0.0]).numel())
         stats["scene_bytes"] = stats.get("scene_bytes", 0) + nbytes
     return state[:2] if occl else state
 
@@ -404,18 +416,88 @@ def trace_plain(pk, rays: torch.Tensor, config: RenderConfig, *,
 # the CUDA kernels' wrappers
 # ---------------------------------------------------------------------------
 
+@dataclasses.dataclass
+class TraceRecords:
+    """The trace kernels' layout of a PackedLeaves tree (``trace_records``).
+
+    ``node`` (n_wide * 8, 8) int32, one 32-byte record per child of each
+    wide node, ``[x0 y0 z0 x1 | y1 z1 meta link]``: the bits of WN's eight
+    lanes for that child, the last (a pad in WN) holding ``link``: for a
+    leaf child the index of its first slot record, for an interior child
+    the number of children of that wide node, 0 for an empty child. Empty
+    children trail every row. ``slot`` (n_records, 16) float32: the
+    occupied slots' test records, ``BvhRecords.slot`` itself (P's 16
+    attributes, in leaf-id and slot order). ``shade`` (n_records, 16)
+    float32: the same slots' PS rows 4-7 in the S order ``[n0x n0y n0z n1x
+    | n1y n1z n2x n2y | n2z t0u t0v t1u | t1v t2u t2v mtl]``. ``slot_id``
+    (n_records,) int32: 32 * leaf + s of each record. ``root_kids``: the
+    root wide node's children; ``wide_depth``: for the stack bound;
+    ``leaf_size``: the most slots a leaf holds."""
+
+    node: torch.Tensor
+    slot: torch.Tensor
+    shade: torch.Tensor
+    slot_id: torch.Tensor
+    root_kids: int
+    wide_depth: int
+    leaf_size: int
+
+
+def trace_records(pk, brec) -> TraceRecords:
+    """The trace kernels' layout of ``pk`` on its device, reusing the
+    packet-BVH kernel's slot records ``brec`` (``Scene.trace_records``
+    builds it once per scene)."""
+    dev = pk.WN.device
+    if pk.n_leaves * 64 + 66 > 2 ** 24:
+        raise ValueError("WN's float leaf words are exact below 262,143 leaves")
+    child = pk.WN[:, :64].reshape(-1, 8)      # lanes 64-127 of a row are unused
+    meta = child[:, 6].to(torch.int64)
+    kids = (meta != -1).reshape(-1, 8).sum(dim=1)
+    # widen_bvh fills each row from the front: the walks stop at `kids`
+    if not torch.equal(meta.reshape(-1, 8) != -1,
+                       torch.arange(8, device=dev) < kids[:, None]):
+        raise ValueError("empty children must trail every wide node")
+    leaf, inner = meta <= -2, meta >= 0
+    dec = -meta[leaf] - 2
+    slot_id = brec.slot_id
+    first = torch.searchsorted(slot_id, ((dec >> 6) * SLOT).to(torch.int32))
+    last = torch.searchsorted(slot_id, ((dec >> 6) * SLOT + SLOT).to(torch.int32))
+    if not torch.equal(last - first, dec & 63):
+        raise ValueError("a leaf child's count must match its slot records")
+    link = torch.zeros_like(meta)
+    link[leaf] = first
+    link[inner] = kids[meta[inner]]
+    node = child.contiguous().view(torch.int32).clone()
+    node[:, 7] = link.to(torch.int32)
+    a = torch.arange(16, device=dev)
+    sid = slot_id.to(torch.int64)[:, None]
+    col = (sid >> 5) * 128 + (a % 4) * SLOT + (sid & (SLOT - 1))
+    shade = pk.PS[4 + a // 4, col].contiguous()
+    return TraceRecords(node=node, slot=brec.slot, shade=shade,
+                        slot_id=slot_id, root_kids=int(kids[0]),
+                        wide_depth=pk.wide_depth, leaf_size=pk.leaf_size)
+
+
+def near_pause(rec: TraceRecords, md) -> int:
+    """How few of a warp's lanes may still be walking before they pause
+    and the warp tests the leaves the others hold (0: never): 8 for the
+    near-first walk on leaves of at most 8 slots. On leaves of up to 32
+    slots, whose tests cost more, the warp waits for its last walkers,
+    and a preorder lane walks on past its held leaves instead (both
+    measured faster on the card)."""
+    return 8 if md is not None and rec.leaf_size <= 8 else 0
+
+
 def _lib():
     from tinyraytracing_tpu_torch.ops.kernels import library
 
     lib = library("trace.cu")
     if not getattr(lib, "_trt_typed", False):
-        P = ctypes.c_void_p
-        lib.trt_trace.argtypes = [P, P, P, ctypes.c_longlong, P, ctypes.c_int,
-                                  ctypes.c_int, P, ctypes.c_int,
-                                  ctypes.c_float, ctypes.c_float,
-                                  ctypes.c_float, P]
+        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.trt_trace.argtypes = [P, P, P, P, P, P, P, I, I, P, I, I, I, F, F,
+                                  F, P]
         lib.trt_trace.restype = ctypes.c_int
-        lib.trt_packet_dirs.argtypes = [P, ctypes.c_int, ctypes.c_int, P, P]
+        lib.trt_packet_dirs.argtypes = [P, I, I, P, P]
         lib.trt_packet_dirs.restype = ctypes.c_int
         lib.trt_max_stack.argtypes = []
         lib.trt_max_stack.restype = ctypes.c_int
@@ -423,43 +505,61 @@ def _lib():
     return lib
 
 
-def trace_kernel(pk, rays: torch.Tensor, config: RenderConfig, *,
-                 attrs: bool = True, occl: bool = False, tile: int = 0,
+def trace_kernel(rec: TraceRecords, rays: torch.Tensor, config: RenderConfig,
+                 *, attrs: bool = True, occl: bool = False, tile: int = 0,
                  md: torch.Tensor | None = None) -> torch.Tensor:
-    """Launch the CUDA kernel on PyTorch's current stream; same contract as
-    ``trace_plain``. Raises on a CPU tensor or a failed launch."""
+    """Launch the CUDA kernel on PyTorch's current stream over the scene's
+    ``trace_records``; same result as ``trace_plain`` on the scene's
+    PackedLeaves. Raises on a CPU tensor or a failed launch."""
     if not rays.is_cuda:
         raise ValueError("trace_kernel needs CUDA tensors")
-    checked = [("rays", rays), ("WN", pk.WN), ("PS", pk.PS)]
+    checked = [("rays", rays, torch.float32), ("node", rec.node, torch.int32),
+               ("slot", rec.slot, torch.float32),
+               ("shade", rec.shade, torch.float32),
+               ("slot_id", rec.slot_id, torch.int32)]
     if md is not None:
-        checked.append(("md", md))
-    for name, x in checked:
-        if x.dtype != torch.float32 or not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous float32")
+        checked.append(("md", md, torch.float32))
+    for name, x, dt in checked:
+        if x.dtype != dt or not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous {dt}")
         if x.device != rays.device:
             raise ValueError(f"{name} is on {x.device}, rays on {rays.device}")
     if rays.dim() != 2 or rays.shape[0] != 8:
         raise ValueError(f"rays must be (8, R), got {tuple(rays.shape)}")
-    if pk.WN.shape[1] != 128 or pk.PS.shape[0] != 8:
-        raise ValueError("WN must be (n_wide, 128) and PS (8, cols)")
+    n_rec = rec.slot.shape[0]
+    if (rec.node.dim() != 2 or rec.node.shape[1] != 8
+            or tuple(rec.shade.shape) != (n_rec, 16)
+            or tuple(rec.slot_id.shape) != (n_rec,)):
+        raise ValueError("node records must be (n, 8), slot and shading "
+                         "records (n_records, 16), slot ids (n_records,)")
+    if rec.node.shape[0] >= 2 ** 28 or n_rec >= 2 ** 25:
+        raise ValueError("the kernel's stack words hold < 2^25 slot records "
+                         "and < 2^25 wide nodes")
     R = rays.shape[1]
     if md is not None and (tile <= 0 or tuple(md.shape) != (-(-R // tile), 3)):
         raise ValueError(f"md must be (ceil(R / tile), 3) with tile > 0, got "
                          f"{tuple(md.shape)} for R={R}, tile={tile}")
     lib = _lib()
-    need = pk.wide_depth * 7 + 1
+    need = rec.wide_depth * 7 + 1
     if need > lib.trt_max_stack():
         raise ValueError(f"BVH needs a {need}-entry stack; the kernel holds "
                          f"{lib.trt_max_stack()} (TRT_MAX_STACK in trace.cu)")
     out = torch.empty((2 if occl else N_OUT, R), dtype=torch.float32,
                       device=rays.device)
+    # on a tree of more than one wide node, resident blocks take the rays
+    # from a counter, refilling the lanes whose walks end early; a one-node
+    # tree's walks are short and alike, and there a plain grid is faster
+    counter = (torch.empty(1, dtype=torch.int32, device=rays.device)
+               if rec.node.shape[0] > 8 else None)
+    pause = near_pause(rec, md)
     query = 2 if occl else (0 if attrs else 1)
     with torch.cuda.device(rays.device):
         err = lib.trt_trace(
-            rays.data_ptr(), pk.WN.data_ptr(), pk.PS.data_ptr(),
-            pk.PS.shape[1], out.data_ptr(), R, query,
-            None if md is None else md.data_ptr(), tile, config.t_min,
-            config.n_dot_d_min, 1.0 + config.tie_eps,
+            rays.data_ptr(), rec.node.data_ptr(), rec.slot.data_ptr(),
+            rec.shade.data_ptr(), rec.slot_id.data_ptr(), out.data_ptr(),
+            None if counter is None else counter.data_ptr(), R, query,
+            None if md is None else md.data_ptr(), tile, rec.root_kids, pause,
+            config.t_min, config.n_dot_d_min, 1.0 + config.tie_eps,
             torch.cuda.current_stream(rays.device).cuda_stream,
         )
     if err != 0:
@@ -471,11 +571,12 @@ def trace_kernel(pk, rays: torch.Tensor, config: RenderConfig, *,
     return out
 
 
-def _trace(pk, rays, config, attrs, occl):
+def _trace(scene, rays, config, attrs, occl):
+    pk = scene.bvh.packed
     tile, md = walk_packets(pk, rays, config, occl)
     if rays.is_cuda:
-        return trace_kernel(pk, rays, config, attrs=attrs, occl=occl,
-                            tile=tile, md=md)
+        return trace_kernel(scene.trace_records, rays, config, attrs=attrs,
+                            occl=occl, tile=tile, md=md)
     if rays.device.type == "cpu":
         return trace_plain(pk, rays, config, attrs=attrs, occl=occl,
                            tile=tile, md=md)
@@ -510,7 +611,7 @@ def fused_trace_planes(scene, ox, oy, oz, dx, dy, dz, config: RenderConfig,
     pk = scene.bvh.packed
     rays = torch.stack([ox, oy, oz, dx, dy, dz, t_bound, target_mtl]).to(
         torch.float32).contiguous()
-    outs = _trace(pk, rays, config, attrs, occl).unbind(0)
+    outs = _trace(scene, rays, config, attrs, occl).unbind(0)
     if occl:
         return outs
     if not return_tri:

@@ -19,9 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tinyraytracing_tpu_torch.config import (
-    DEFAULT_CONFIG, RenderConfig, check_ported,
-)
+from tinyraytracing_tpu_torch.config import DEFAULT_CONFIG, RenderConfig
 from tinyraytracing_tpu_torch.integrator.fused import render_fused_image
 from tinyraytracing_tpu_torch.integrator.fused_queue import (
     render_fused_queue_chunked, render_fused_queue_image,
@@ -62,7 +60,6 @@ def render(scene: Scene, cam: Camera, key, config: RenderConfig = DEFAULT_CONFIG
     """Render the mean image over ``spp`` passes. Returns (H, W, 3) linear
     float32 on the scene's device. ``key``: (k0, k1) key words
     (``ops.rng.master_key_data(seed)`` is ``jax.random.PRNGKey(seed)``)."""
-    check_ported(config)
     spp = spp or config.spp
     acc = torch.zeros((cam.height, cam.width, 3), dtype=torch.float32,
                       device=scene.device)
@@ -104,7 +101,6 @@ def render_image(
     or in chunks when a checkpoint is asked for (the same image, bit for
     bit). ``progress`` goes to the chunked driver. Other renderers ignore
     the three."""
-    check_ported(config)
     spp_val = spp or config.spp
     if renderer == "auto":
         renderer = pick_renderer(scene)

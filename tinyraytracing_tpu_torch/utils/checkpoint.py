@@ -22,7 +22,7 @@ import os
 
 import numpy as np
 
-from tinyraytracing_tpu_torch.config import RenderConfig, check_ported
+from tinyraytracing_tpu_torch.config import RenderConfig
 
 # bump whenever the queue state's layout changes
 # (fused_queue.STATE_LAYOUT): older snapshots are then rejected by the meta
@@ -96,7 +96,6 @@ def render_checkpointed(
     from tinyraytracing_tpu_torch.ops.rng import fold_in, master_key_data
     from tinyraytracing_tpu_torch.render import render_pass
 
-    check_ported(config)
     key = master_key_data(seed)
     H, W = cam.height, cam.width
     acc = np.zeros((H, W, 3), np.float64)
