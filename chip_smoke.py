@@ -6,8 +6,9 @@ renderer (the 100K-triangle scene), with the scan renderer (the
 slot kernel) and with the persistent renderer (cornell), renders the
 100K-triangle scene under the near-first walk through ``render_image``,
 renders small scenes on the card and on the CPU to compare, and
-interrupts and resumes a checkpointed queue render. Run from the
-repository root:
+interrupts and resumes a checkpointed queue render. The slot kernel is
+also checked on grid6000 and on the tie scene of the CPU tests
+(``tests/torch_slot_emulate.py``). Run from the repository root:
 
     python3 chip_smoke.py
 
@@ -28,12 +29,14 @@ Before and after a kernel's redesign, on one card in one call:
 times the redesigned kernels of the parent's package and of this tree in
 turns (parent, this, this, parent) and checks their outputs bitwise equal:
 the trace kernels through ``ops.trace.fused_trace_planes`` (closest hit
-and occlusion, preorder and near-first), the packet sums and the
-packet-BVH kernel.
+and occlusion, preorder and near-first), the packet sums, the packet-BVH
+kernel and the slot kernel. ``--sass TREE`` counts the SASS instructions
+per slot test of the slot kernel of TREE's package.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import statistics
@@ -64,6 +67,9 @@ REPLACES = {
 # H100 SXM datasheet peaks: float32 outside the tensor
 # cores, and HBM bandwidth
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
+# lane-instructions the card issues per second: 132 SMs x 4 schedulers x
+# 32 lanes at 1,980 MHz (an FMA counts once; the kernels issue none)
+INSTR_RATE = 132 * 4 * 32 * 1.98e9
 SCAN_CHUNK = 65536               # RenderConfig.ray_chunk: one scan dispatch
 WARM_S = 0.05                    # warm-up load before each timed set
 LOW_MHZ = 1500                   # a reading below this SM clock is marked
@@ -398,11 +404,27 @@ def phase_kernels(dev):
         kinds = ("bvh", "slot") if name.startswith("cornell") else ("bvh",)
         ok2b &= phase_intersect_kernels(name, scene, cam, kinds, gen, reports)
         t0 = time.perf_counter()
+    import importlib.util
+
     from tinyraytracing_tpu_torch.models.procedural import quad_grid
 
     grid6k, cam = quad_grid(6000, device=dev)
     ok2b &= phase_intersect_kernels("grid6000 leaf 8", grid6k, cam, ("slot",),
                                     gen, reports)
+    # the tie scene of the slot kernel's CPU tests, loaded from its file
+    # (the card's machine may have another package named tests)
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "torch_slot_emulate.py")
+    spec = importlib.util.spec_from_file_location("torch_slot_emulate", path)
+    emulate = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(emulate)
+    ties, cam = emulate.tie_scene(device=dev)
+    rays = _scan_probe_rays(ties, cam, gen)
+    # its surfaces lie in the lights' planes: shadow rays from them never
+    # hit, so these come from below, aimed at the light's tied triangles
+    rays["shadow"] = emulate.tie_shadow_rays(ties, SCAN_CHUNK, 2024, dev)
+    ok2b &= phase_intersect_kernels("ties", ties, cam, ("slot",), gen, reports,
+                                    rays)
     return ok, ok2b, reports
 
 
@@ -510,7 +532,8 @@ def _scan_probe_rays(scene, cam, gen):
     camera hit; one shadow ray from each camera hit toward a random point
     of light 0. Misses park at 1e30 as the scan renderer parks dead rays
     (bounce direction (0, 0, 1); the shadow direction its NEE computes).
-    Hits come from the packet-BVH kernel."""
+    Hits come from the packet-BVH kernel, or the slot kernel on a scene
+    without a BVH."""
     import dataclasses
 
     from tinyraytracing_tpu_torch.config import RenderConfig
@@ -524,7 +547,8 @@ def _scan_probe_rays(scene, cam, gen):
     o, d = generate_rays(dataclasses.replace(cam, width=side, height=side),
                          (0, 2024), dev)
     n = o.shape[0]
-    hit = intersect(scene, o, d, RenderConfig(intersector="bvh_pallas"))
+    hit = intersect(scene, o, d, RenderConfig(
+        intersector="pallas" if scene.bvh is None else "bvh_pallas"))
     ok = hit.hit[:, None]
     point = torch.where(ok, o + hit.t[:, None] * d,
                         torch.tensor(1.0e30, device=dev))
@@ -544,17 +568,19 @@ def _scan_probe_rays(scene, cam, gen):
             "shadow": planes(point, sd)}
 
 
-def phase_intersect_kernels(name, scene, cam, kinds, gen, reports):
+def phase_intersect_kernels(name, scene, cam, kinds, gen, reports, rays=None):
     """Kernels 4 ("bvh") and 5 ("slot") against their plain versions on the
-    scan path's three kinds of rays: every output plane bitwise equal."""
+    scan path's three kinds of rays (``rays``, else ``_scan_probe_rays``):
+    every output plane bitwise equal. The slot kernel's cases also time an
+    empty kernel on its grid (the floor under its device time)."""
     from tinyraytracing_tpu_torch.config import RenderConfig
     from tinyraytracing_tpu_torch.ops import bvh_intersect as bi
     from tinyraytracing_tpu_torch.ops import slot_intersect as si
 
     cfg = RenderConfig()
     t0 = time.perf_counter()
-    rays = _scan_probe_rays(scene, cam, gen)
-    pk = scene.bvh.packed
+    rays = rays or _scan_probe_rays(scene, cam, gen)
+    pk = scene.bvh.packed if scene.bvh is not None else None
     P, n_chunks = scene.slot_payload
     T = scene.num_triangles
     log(f"phase 2b [{name}]: {T} triangles, {n_chunks} slot chunks, "
@@ -592,8 +618,13 @@ def phase_intersect_kernels(name, scene, cam, kinds, gen, reports):
             ok &= not bad
             rep = reports[kname]
             rep["max_abs_err"] = max(rep["max_abs_err"], err)
-            rep.setdefault("cases", {})[f"{name}, {label}"] = dict(
-                device_ms=kms, host_ms=hms, sm_mhz=mhz, bound_ms=bms)
+            case = dict(device_ms=kms, host_ms=hms, sm_mhz=mhz, bound_ms=bms)
+            if kind == "slot":
+                case["floor_ms"], _, _ = _times(lambda: _empty_launch(R),
+                                                ("empty_kernel",))
+                log(f"    an empty kernel on its grid: {case['floor_ms']:.4f} "
+                    f"ms device")
+            rep.setdefault("cases", {})[f"{name}, {label}"] = case
             # the main path's dispatch: bounce rays on the tree the CLI
             # builds (kernel 4), on cornell (kernel 5)
             if label == "bounce" and (name, kind) in (("grid100k leaf 8", "bvh"),
@@ -601,6 +632,42 @@ def phase_intersect_kernels(name, scene, cam, kinds, gen, reports):
                 rep.update(ms=kms, device_ms=kms, host_ms=hms, sm_mhz=mhz,
                            plain_ms=pms, bound_ms=bms, bound_by=by)
     return ok
+
+
+EMPTY_CU = r"""
+__global__ void empty_kernel() {}
+
+extern "C" int trt_empty_launch(int blocks, int threads, void* stream) {
+  empty_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
+}
+"""
+SLOT_BLOCK = 512                 # csrc/slot_intersect.cu: threads a block
+
+
+@functools.lru_cache(maxsize=None)
+def _empty_lib():
+    """EMPTY_CU built with the package's flags into its build directory."""
+    import ctypes
+
+    from tinyraytracing_tpu_torch.ops import kernels
+
+    src = kernels.BUILD_DIR / "empty_kernel.cu"
+    if not src.exists():
+        kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        src.write_text(EMPTY_CU)
+    lib = kernels.library(str(src))
+    lib.trt_empty_launch.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    return lib
+
+
+def _empty_launch(R):
+    """An empty kernel on the grid the slot kernel launches for R rays (the
+    floor under its device time)."""
+    err = _empty_lib().trt_empty_launch(-(-R // SLOT_BLOCK), SLOT_BLOCK,
+                                        torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"empty kernel launch failed: cudaError {err}")
 
 
 # ---------------------------------------------------------------------------
@@ -1058,17 +1125,22 @@ def kernel_times(tree):
     2's 262,144 camera + bounce rays, occlusion on its 262,144 shadow rays,
     each preorder and near-first) on grid100k at leaf 8 and 32 and on
     cornell; the packet sums of 262,144 rays in packets of 2048 (beside
-    torch.sum) and of 16384; and the packet-BVH kernel on phase 2b's three
-    kinds of rays on the same scenes. Prints one JSON object: per case
-    [device ms, host-inclusive ms, digest of the outputs, SM clock MHz
-    after the set] (no digest for torch.sum, and none for the packets of
-    16384, whose order of adds the packet-sum repair changed)."""
+    torch.sum) and of 16384; the packet-BVH kernel on phase 2b's three
+    kinds of rays on the same scenes; and the slot kernel on phase 2b's
+    three kinds of rays on cornell and grid6000, with an empty kernel on
+    its grid as the floor under its time. Prints one JSON object: per
+    case [device ms, host-inclusive ms, digest of the outputs, SM clock
+    MHz after the set] (no digest for torch.sum, the empty kernel and the
+    packets of 16384, whose order of adds the packet-sum repair
+    changed)."""
     import hashlib
 
     sys.path.insert(0, os.path.abspath(tree))
     import tinyraytracing_tpu_torch
     from tinyraytracing_tpu_torch.config import RenderConfig
+    from tinyraytracing_tpu_torch.models.procedural import quad_grid
     from tinyraytracing_tpu_torch.ops import bvh_intersect as bi
+    from tinyraytracing_tpu_torch.ops import slot_intersect as si
     from tinyraytracing_tpu_torch.ops import trace
 
     def digest(out):
@@ -1080,6 +1152,12 @@ def kernel_times(tree):
     def case(fn, names, checked=True):
         dev, host, mhz = _times(fn, names)
         return [dev, host, digest(fn()) if checked else "", mhz]
+
+    def slot_cases(name, scene, probe):
+        for label, r in probe.items():
+            fn = lambda: si.slot_intersect_planes(scene, r, cfg)
+            res[f"slot_intersect {name}, {label}"] = case(fn,
+                                                          ("slot_intersect",))
 
     res = {"package": os.path.dirname(tinyraytracing_tpu_torch.__file__)}
     cfg = RenderConfig()
@@ -1099,6 +1177,13 @@ def kernel_times(tree):
         for label, r in probe.items():
             fn = lambda: bi.bvh_intersect_planes(scene, r, cfg)
             res[f"bvh_intersect {name}, {label}"] = case(fn, ("bvh_intersect",))
+        if name.startswith("cornell"):
+            slot_cases(name, scene, probe)
+    grid6k, cam = quad_grid(6000, device="cuda")
+    slot_cases("grid6000", grid6k, _scan_probe_rays(
+        grid6k, cam, torch.Generator().manual_seed(2024)))
+    res[f"empty kernel on the slot grid, {SCAN_CHUNK} rays"] = case(
+        lambda: _empty_launch(SCAN_CHUNK), ("empty_kernel",), False)
     R = 262144
     d = torch.randn(3, R, generator=torch.Generator().manual_seed(7))
     rays = torch.zeros(8, R)
@@ -1242,13 +1327,138 @@ def profile_walk(out_path):
                     for k, v in row.items() if k != "counts") else 1
 
 
+def _sass_loops(text):
+    """Per function of a ``cuobjdump -sass`` listing: its instructions, and
+    the loops (a backward branch and its target) as address spans."""
+    import re
+
+    funcs, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = funcs[m.group(1)] = {"ins": [], "labels": {}, "pending": []}
+            continue
+        if cur is None:
+            continue
+        m = re.match(r"\s*(\.L_x_\d+):", line)
+        if m:
+            cur["pending"].append(m.group(1))
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m:
+            addr = int(m.group(1), 16)
+            for lab in cur["pending"]:
+                cur["labels"][lab] = addr
+            cur["pending"] = []
+            cur["ins"].append((addr, m.group(2)))
+    out = {}
+    for name, f in funcs.items():
+        loops = []
+        for addr, ins in f["ins"]:
+            op = re.sub(r"^@!?U?P\w+\s+", "", ins)
+            if not op.startswith("BRA"):
+                continue
+            m = re.search(r"\((\.L_x_\d+)\)", op) or re.search(r"(0x[0-9a-f]+)", op)
+            if m is None:
+                continue
+            tgt = f["labels"].get(m.group(1)) if m.group(1).startswith(".L") \
+                else int(m.group(1), 16)
+            if tgt is not None and tgt <= addr:
+                loops.append((tgt, addr))
+        out[name] = (f["ins"], loops)
+    return out
+
+
+def _opcode(ins):
+    import re
+
+    return re.sub(r"^@!?U?P\w+\s+", "", ins).split()[0]
+
+
+def sass_counts(tree, out_path):
+    """``--sass TREE``: the SASS of the slot kernel of the package in TREE
+    (``cuobjdump -sass`` of its built library). For each kernel function:
+    its instructions and the subroutines it calls; and in its chunk loop
+    (the loop that loads the most slot attributes from shared memory: its
+    slot tests are the bytes it loads over 64) the instructions per slot
+    test on the common path, by opcode. Not on the common path: the blocks
+    a branch skips right after a warp vote (a slot accepted, the slow
+    reciprocal) and the blocks a branch skips that call a subroutine (the
+    division's or reciprocal's slow path); those are counted apart. Then
+    the issue-rate bound of the common path for the scan dispatch on
+    cornell and grid6000: instructions per test x (ray, triangle) tests /
+    INSTR_RATE lane-instructions per second."""
+    import re
+    import shutil
+
+    sys.path.insert(0, os.path.abspath(tree))
+    from tinyraytracing_tpu_torch.ops import kernels
+
+    path, _ = kernels._build_one("slot_intersect.cu")
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                          text=True, check=True).stdout
+    if out_path:
+        with open(out_path, "w") as f:
+            f.write(text)
+    nbytes = lambda op: (16 if op.endswith(".128") else 8 if op.endswith(".64")
+                         else 4) if op.startswith("LDS") else 0
+    res = {}
+    for name, (ins, loops) in _sass_loops(text).items():
+        if "slot_intersect_kernel" not in name:
+            continue
+        ops = [_opcode(i) for _, i in ins]
+        calls = sorted({i.split()[-1] for (_, i), op in zip(ins, ops)
+                        if op.startswith("CALL")})
+        row = dict(instructions=len(ins), calls=calls)
+        tests = lambda lo, hi: sum(nbytes(op) for (a, _), op in zip(ins, ops)
+                                   if lo <= a <= hi) / 64
+        if loops:
+            lo, hi = max(loops, key=lambda l: (tests(*l), l[0] - l[1]))
+            body = [(a, i, op) for (a, i), op in zip(ins, ops) if lo <= a <= hi]
+            skipped = {}
+            for k, (a, i, op) in enumerate(body):
+                m = re.search(r"BRA (0x[0-9a-f]+)", i)
+                if not (i.startswith("@") and op == "BRA" and m):
+                    continue
+                tgt = int(m.group(1), 16)
+                block = [x for x in body if a < x[0] < tgt]
+                voted = any(x[2].startswith("VOTE") for x in body[max(k - 3, 0):k])
+                if voted or any(x[2].startswith("CALL") for x in block):
+                    kind = "after a vote" if voted else "slow path"
+                    for x in block:
+                        skipped.setdefault(x[0], kind)
+            n = tests(lo, hi)
+            common = [op for a, _, op in body if a not in skipped]
+            count = {}
+            for op in common:
+                count[op] = count.get(op, 0) + 1
+            per = len(common) / n
+            kinds = list(skipped.values())
+            row.update(
+                tests_per_iteration=n, per_test=per,
+                per_test_after_a_vote=kinds.count("after a vote") / n,
+                per_test_slow_path=kinds.count("slow path") / n,
+                per_test_ops={k: v / n for k, v in sorted(count.items(),
+                                                         key=lambda kv: -kv[1])})
+            for scene, n_tri in (("cornell", 32), ("grid6000", 6012)):
+                row[f"issue_bound_ms {scene}"] = (
+                    1e3 * per * SCAN_CHUNK * n_tri / INSTR_RATE)
+        res[name] = row
+        log(f"{name}: {json.dumps(row)}")
+    print(json.dumps({"package": os.path.dirname(os.path.dirname(
+        kernels.__file__)), "functions": res}), flush=True)
+    return 0
+
+
 def compare(parent, out_path):
     """``--compare PARENT``: ``--kernel-times`` of the package in PARENT (a
     ``git archive`` of the parent commit, unpacked) and of this tree, in
     turns (parent, this, this, parent), each in its own process, so both
     are timed on the same card; prints the device times side by side, each
     with the SM clock it was read at, and fails unless the two trees'
-    outputs are bitwise equal in every case."""
+    outputs are bitwise equal in every case and the parent has no case
+    this tree lacks."""
     here = os.path.dirname(os.path.abspath(__file__))
     runs = []
     for tree in (parent, here, here, parent):
@@ -1268,8 +1478,21 @@ def compare(parent, out_path):
         f"MHz after the set); runs in the order parent, this, this, parent")
     ok, table = True, {}
     for key in runs[0]:
-        old = [runs[0][key], runs[3][key]]
+        if key not in runs[1]:
+            ok = False
+            table[key] = dict(missing_here=True)
+            log(f"  {key}: MISSING in this tree (the parent has it)")
+    for key in runs[1]:
         new = [runs[1][key], runs[2][key]]
+        if key not in runs[0]:
+            table[key] = dict(device_ms=[r[0] for r in new],
+                              host_ms=[r[1] for r in new],
+                              sm_mhz=[r[3] for r in new])
+            log(f"  {key}: this {new[0][0]:.5f} / {new[1][0]:.5f} [{new[0][1]:.5f}"
+                f" / {new[1][1]:.5f}] (the parent has no such case); MHz "
+                f"{[r[3] for r in new]}")
+            continue
+        old = [runs[0][key], runs[3][key]]
         same = len({r[2] for r in old + new}) == 1
         checked = bool(old[0][2])
         ok &= same or not checked
@@ -1303,8 +1526,12 @@ def main(argv=None) -> int:
                     help="time the redesigned kernels against the tree PARENT")
     ap.add_argument("--profile-walk", action="store_true",
                     help="where the trace kernels' time goes (clock64 counts)")
+    ap.add_argument("--sass", metavar="TREE",
+                    help="instructions per slot test in the slot kernel of "
+                         "the package in TREE (cuobjdump)")
     ap.add_argument("--out", help="with --compare or --profile-walk: write "
-                                  "the table here (JSON)")
+                                  "the table here (JSON); with --sass, the "
+                                  "listing")
     ap.add_argument("--kernel-times", metavar="TREE", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -1312,6 +1539,8 @@ def main(argv=None) -> int:
         return 1
     if args.kernel_times:
         return kernel_times(args.kernel_times)
+    if args.sass:
+        return sass_counts(args.sass, args.out)
     if args.compare:
         return compare(os.path.abspath(args.compare), args.out)
     if args.profile_walk:

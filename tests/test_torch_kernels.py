@@ -19,6 +19,10 @@ from tinyraytracing_tpu_torch.config import RenderConfig
 from tinyraytracing_tpu_torch.models.procedural import cornell_box, quad_grid
 from tinyraytracing_tpu_torch.ops import bvh_intersect, intersect, slot_intersect, trace
 from tinyraytracing_tpu_torch.ops.bvh import attach_bvh
+# by its own name: the card's machine may have another package named tests
+from torch_slot_emulate import (
+    extreme_payload, tie_rays, tie_scene, tie_shadow_rays,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -120,21 +124,40 @@ def test_wrapper_launches_kernel_on_cuda(device):
 
 
 @pytest.mark.parametrize("shadow", [False, True])
-@pytest.mark.parametrize("name", ["cornell", "grid", "grid32"])
+@pytest.mark.parametrize("name", ["cornell", "grid", "grid32", "ties"])
 def test_intersect_kernels_bitwise_equal_plain(name, shadow, device):
-    """The packet-BVH and slot kernels against their plain versions."""
-    scene = _scene(name, device)
-    rays = _rays(4096, device, scene if shadow else None)[:6].contiguous()
+    """The packet-BVH and slot kernels against their plain versions, on
+    4,173 rays (not a multiple of the slot kernel's rays per block); the
+    slot kernel also on the payload with w rows off its fast reciprocal's
+    range (the slow path; tests/torch_slot_emulate.py
+    ``extreme_payload``). "grid" is the 6,000-triangle quad grid (188
+    chunks); "ties" the scene of tests/torch_slot_emulate.py (no BVH),
+    whose rays aim at its tied layers (the shadow rays at its light's
+    triangles)."""
+    R = 4096 + 77
+    if name == "ties":
+        scene, _ = tie_scene(device=device)
+        rays = (tie_shadow_rays(scene, R, device=device) if shadow else
+                tie_rays(per_region=-(-R // 9), device=device)[:, :R])
+    else:
+        scene = _scene(name, device)
+        rays = _rays(R, device, scene if shadow else None)[:6]
+    rays = rays.contiguous()
+    assert rays.shape == (6, R)
     cfg = RenderConfig()
-    k = bvh_intersect.bvh_intersect_kernel(scene.bvh_records, rays, cfg)
-    p = bvh_intersect.bvh_intersect_plain(scene.bvh.packed, rays, cfg)
-    torch.cuda.synchronize()
-    assert all(torch.equal(a, b) for a, b in zip(k, p))
-    P, _ = scene.slot_payload
-    k = slot_intersect.slot_intersect_kernel(P, scene.num_triangles, rays, cfg)
-    p = slot_intersect.slot_intersect_plain(P, scene.num_triangles, rays, cfg)
-    torch.cuda.synchronize()
-    assert all(torch.equal(a, b) for a, b in zip(k, p))
+    if scene.bvh is not None:
+        k = bvh_intersect.bvh_intersect_kernel(scene.bvh_records, rays, cfg)
+        p = bvh_intersect.bvh_intersect_plain(scene.bvh.packed, rays, cfg)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(k, p))
+    P, T = scene.slot_payload[0], scene.num_triangles
+    hits = slot_intersect.slot_intersect_plain(P, T, rays, cfg)[0] < 3.0e38
+    assert bool(hits.any())
+    for P in (P, extreme_payload(P)):
+        k = slot_intersect.slot_intersect_kernel(P, T, rays, cfg)
+        p = slot_intersect.slot_intersect_plain(P, T, rays, cfg)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(k, p))
 
 
 @pytest.mark.parametrize("leaf_size", [1, 4, 8, 32])

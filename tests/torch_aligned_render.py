@@ -6,7 +6,10 @@ packages, with the arithmetic of the two aligned, and save the images:
         python -m tests.torch_aligned_render OUT.npz [SCENE ...]
 
 A SCENE written ``scan:<scene>`` renders the scan-renderer cases of
-tests/test_torch_scan_render.py (``SCAN_CASES``) instead of the queue's.
+tests/test_torch_scan_render.py (``SCAN_CASES``) instead of the queue's;
+one written ``textured:<dir>`` loads the scene files of
+tests/test_torch_textures.py from ``<dir>`` with each package's
+``load_scene`` and renders ``TEXTURED_CASES``.
 
 Three things make the JAX package's CPU render differ from the port's in
 the last ulp, and each of them alone flips a few shadow and bounce
@@ -51,6 +54,7 @@ from tinyraytracing_tpu.integrator.fused_queue import render_fused_queue_jit  # 
 from tinyraytracing_tpu.models import procedural as jproc  # noqa: E402
 from tinyraytracing_tpu.ops.bvh import attach_bvh  # noqa: E402
 from tinyraytracing_tpu.render import render as jax_scan_render  # noqa: E402
+from tinyraytracing_tpu.render import render_image as jax_render_image  # noqa: E402
 from tinyraytracing_tpu_torch.config import RenderConfig  # noqa: E402
 from tinyraytracing_tpu_torch.integrator.fused import render_fused_stats  # noqa: E402
 from tinyraytracing_tpu_torch.integrator.fused_queue import render_fused_queue  # noqa: E402
@@ -58,6 +62,7 @@ from tinyraytracing_tpu_torch.models.camera import Camera  # noqa: E402
 from tinyraytracing_tpu_torch.ops import vec  # noqa: E402
 from tinyraytracing_tpu_torch.ops.rng import master_key_data  # noqa: E402
 from tinyraytracing_tpu_torch.render import render as port_scan_render  # noqa: E402
+from tinyraytracing_tpu_torch.render import render_image as port_render_image  # noqa: E402
 from tests.torch_port_util import port_scene  # noqa: E402
 
 SIZE, SPP, LANES, SEED = 16, 2, 512, 3
@@ -101,6 +106,12 @@ SCAN_CONFIGS = {
 SCAN_CASES = ([(n, c) for n in ("cornell", "grid600")
                for c in ("bvh", "mxu", "bvh_pallas", "pallas")]
               + [("cornell", "chunk128"), ("grid600", "chunk96")])
+
+# a textured scene loaded from files: the scan renderer through the slot
+# intersector, and render_image's default renderer (the persistent one
+# below 512 triangles)
+TEXTURED_FILES = ("scene.xml", "scene.obj", "scene.mtl")
+TEXTURED_CASES = ("scan_pallas", "default")
 
 
 def scenes(name):
@@ -152,6 +163,40 @@ def scan_images(name, images):
             ts, tcam, master_key_data(SEED), RenderConfig(**kw), SPP).numpy()
 
 
+def textured_scenes(directory):
+    """(JAX scene, JAX camera, port scene, port camera) of the scene files
+    in ``directory``, each loaded by its own package with a BVH."""
+    import os
+
+    from tinyraytracing_tpu.models.scene import load_scene as jax_load
+    from tinyraytracing_tpu_torch.models.scene import load_scene as port_load
+
+    paths = [os.path.join(directory, f) for f in TEXTURED_FILES]
+    js, jcam = jax_load(*paths, with_bvh=True)
+    ts, tcam = port_load(*paths, with_bvh=True, device="cpu")
+    return js, jcam, ts, tcam
+
+
+def textured_images(directory, images):
+    """The textured cases, both packages, and the port's default render
+    once more with no material textured."""
+    import dataclasses
+
+    js, jcam, ts, tcam = textured_scenes(directory)
+    scan = dict(intersector="pallas")
+    images["textured-scan_pallas-jax"] = np.asarray(jax_scan_render(
+        js, jcam, jax.random.PRNGKey(SEED), JConfig(**scan), SPP))
+    images["textured-scan_pallas-port"] = port_scan_render(
+        ts, tcam, master_key_data(SEED), RenderConfig(**scan), SPP).numpy()
+    images["textured-default-jax"] = jax_render_image(
+        js, jcam, JConfig(), spp=SPP, seed=SEED, lanes=LANES)
+    images["textured-default-port"] = port_render_image(
+        ts, tcam, RenderConfig(), spp=SPP, seed=SEED, lanes=LANES)
+    plain = dataclasses.replace(ts, tex_id=torch.full_like(ts.tex_id, -1))
+    images["textured-default-untextured"] = port_render_image(
+        plain, tcam, RenderConfig(), spp=SPP, seed=SEED, lanes=LANES)
+
+
 def run_processes(out_dir, names):
     """Render ``names`` (one process each, side by side, with FMA
     contraction off) into ``out_dir``; returns all their images."""
@@ -161,7 +206,8 @@ def run_processes(out_dir, names):
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ, JAX_PLATFORMS="cpu", XLA_FLAGS=(
         os.environ.get("XLA_FLAGS", "") + " --xla_cpu_max_isa=AVX"))
-    outs = [os.path.join(out_dir, f"{n.replace(':', '_')}.npz") for n in names]
+    outs = [os.path.join(out_dir, f"{i}-{n.split(':')[0]}.npz")
+            for i, n in enumerate(names)]
     procs = [subprocess.Popen([sys.executable, "-m", "tests.torch_aligned_render",
                                out, n], cwd=root, env=env)
              for out, n in zip(outs, names)]
@@ -183,10 +229,12 @@ def main(out, names):
     into OUT."""
     align()
     images = {}
-    queue = [n for n in names if not n.startswith("scan:")]
+    queue = [n for n in names if ":" not in n]
     for name in names:
         if name.startswith("scan:"):
             scan_images(name[5:], images)
+        elif name.startswith("textured:"):
+            textured_images(name[9:], images)
     if not names:
         queue = list(dict.fromkeys(n for n, _ in CASES))
     for name in queue:

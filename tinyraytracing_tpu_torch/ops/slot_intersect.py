@@ -2,9 +2,12 @@
 ``tinyraytracing_tpu/ops/pallas_intersect.py`` (``pack_triangle_slots``,
 ``pallas_intersect_planes``): the ``intersector="pallas"`` backend.
 
-A hand-written CUDA kernel (``csrc/slot_intersect.cu``, one thread per
-ray, the payload staged through shared memory) replaces the Pallas
-kernel; its source note says what bounds it on an H100. Beside it lives
+A hand-written CUDA kernel (``csrc/slot_intersect.cu``: one thread per
+ray; per chunk the least accepted t wins unless another slot or the carry
+lies in its tie band, and then the chunk's accepted slots are replayed in
+slot order; the payload staged through shared memory) replaces the Pallas
+kernel; its source note says why that fold is exact and what bounds it on
+an H100. Beside it lives
 its plain PyTorch version, ``slot_intersect_plain``, with the kernel's
 exact arithmetic (the slot test and running best of ``ops/slot_test.py``).
 ``slot_intersect_planes`` takes the plain version only for CPU tensors; on
