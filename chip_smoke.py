@@ -5,9 +5,14 @@ renderer (the 100K-triangle scene), with the scan renderer (the
 100K-triangle scene through the packet-BVH kernel, cornell through the
 slot kernel) and with the persistent renderer (cornell), renders the
 100K-triangle scene under the near-first walk through ``render_image``,
-renders small scenes on the card and on the CPU to compare, and
-interrupts and resumes a checkpointed queue render. The slot kernel is
-also checked on grid6000 and on the tie scene of the CPU tests
+renders small scenes on the card and on the CPU to compare,
+interrupts and resumes a checkpointed queue render, and runs the fast
+differentiable path (``diff.fast.render_loss_fast``: the trace kernels
+forward, path replay backward) forward and backward on cornell and on
+the 100K-triangle scene, with a few Adam steps and its gradients held to
+the CPU's. The CLI's tree must come from the native builder
+(``native/``, built with g++ in phase 1). The slot kernel is also checked
+on grid6000 and on the tie scene of the CPU tests
 (``tests/torch_slot_emulate.py``). Run from the repository root:
 
     python3 chip_smoke.py
@@ -15,8 +20,10 @@ also checked on grid6000 and on the tie scene of the CPU tests
 Needs one CUDA device and nvcc; exits non-zero on any failure (and without
 a result when there is no CUDA device). The last line of standard output
 is {"ok": true, "device": {...}}; the line before it lists the kernels,
-each with its device time per launch (torch.profiler) and its
-host-inclusive time (CUDA events around back-to-back calls). Each timed
+each with its device time per launch (torch.profiler), its
+host-inclusive time (CUDA events around back-to-back calls), its
+launches on its main path and on the differentiable path (forward, and
+the backward's recompute). Each timed
 set runs after ~50 ms of back-to-back launches that raise the card's
 clock from idle, and the log gives the SM clock nvidia-smi read right
 after it, marking readings below 1,500 MHz.
@@ -686,10 +693,12 @@ def phase_cli(dev, out_dir):
     real = render_mod.render_fused_queue_chunked
     real_attach = bvh.attach_bvh
 
-    def attach_timed(*a, **k):
+    def attach_timed(scene, config):
         t0 = time.perf_counter()
-        out = real_attach(*a, **k)
-        built.append(time.perf_counter() - t0)
+        out = real_attach(scene, config)
+        # the scene it returns, not the one it was given: holding that one
+        # (with quad_grid's own packed tree) would raise the render's peak
+        built.append((time.perf_counter() - t0, out.bvh.builder, out, config))
         return out
 
     argv = ["--scene", "grid:100000", "--width", "1024", "--height", "1024",
@@ -709,11 +718,20 @@ def phase_cli(dev, out_dir):
     launches = dict(trace.LAUNCHES)
     log(f"phase 3: cli {' '.join(argv[:-2])} (spp cut from config 3's 512 to 4 "
         f"only to fit the smoke's time limit; the chunked queue driver) -> rc {rc}")
-    log(f"  the CLI's BVH build (attach_bvh, numpy) took "
-        f"{' + '.join(f'{b:.2f}' for b in built)} s of its wall")
+    # the numpy builder on the same triangles (in leaf order), timed here
+    # for comparison with the native build (PERF.md, Findings)
+    secs, builder, scene, config = built[0]
+    v = torch.stack([scene.v0, scene.v1, scene.v2], dim=1).cpu().numpy()
+    t0 = time.perf_counter()
+    bvh.build_bvh(v, config.leaf_size, config.aabb_pad)
+    numpy_s = time.perf_counter() - t0
+    log(f"  the CLI's BVH build (attach_bvh, builder {builder}) took "
+        f"{' + '.join(f'{b[0]:.3f}' for b in built)} s of its wall; the numpy "
+        f"builder alone on the same {len(v)} triangles {numpy_s:.3f} s")
     img = _render_report("queue grid:100000", wall, seen, launches, real,
                          ("trace_kernel",))
-    ok = (rc == 0 and launches["trace_closest"] > 0
+    ok = (rc == 0 and all(b[1] == "native" for b in built)
+          and launches["trace_closest"] > 0
           and launches["trace_occlusion"] > 0 and launches["trace_near"] == 0
           and bool(torch.isfinite(img).all()) and float(img.mean()) > 0)
     return ok, launches
@@ -730,6 +748,16 @@ def _profiled(fn, kernel_name):
     many such kernels it recorded, and the SM clock right after: the
     profiler may drop records, so the callers log that count beside the
     launches counted)."""
+    dev, mhz = _device_events(fn)
+    busy_us = sum(e.device_time_total for e in dev)
+    names = kernel_name if isinstance(kernel_name, tuple) else (kernel_name,)
+    kern = [e.device_time_total for e in dev if any(n in e.name for n in names)]
+    return len(dev), busy_us / 1e3, sum(kern) / 1e3, len(kern), mhz
+
+
+def _device_events(fn):
+    """(CUDA events, SM clock right after) of one run of ``fn`` under
+    torch.profiler (CUDA activity only), after a warm-up load."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -740,11 +768,7 @@ def _profiled(fn, kernel_name):
         fn()
         torch.cuda.synchronize()
     mhz = _sm_clock()
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy_us = sum(e.device_time_total for e in dev)
-    names = kernel_name if isinstance(kernel_name, tuple) else (kernel_name,)
-    kern = [e.device_time_total for e in dev if any(n in e.name for n in names)]
-    return len(dev), busy_us / 1e3, sum(kern) / 1e3, len(kern), mhz
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA], mhz
 
 
 def _traced_rays(render_args):
@@ -1111,6 +1135,212 @@ def phase_render_vs_render(dev):
         secs[where] = time.perf_counter() - t0
     return _compare_images("phase 4: grid:6000 64x64 @ 4 spp, 4096 lanes",
                            imgs, secs, 64)
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the differentiable fast path (diff/) on the trace kernels
+# ---------------------------------------------------------------------------
+
+DIFF_DEPTH, DIFF_SPP = 3, 2
+# card against CPU, stated before the first card run: the loss within
+# 1e-4 relative, and each gradient within 1e-2 of its norm (L2): the
+# paths are the same arithmetic on both, but for the order of float adds
+# in sums and in the replay's scatter, and a grazing decision that flips
+# moves one pixel's paths (phase 4c: 4 of 4,096 pixels)
+DIFF_LOSS_RTOL, DIFF_GRAD_RTOL = 1e-4, 1e-2
+
+
+def _loss_and_grads(scene, cam, fields, cfg, key, target, counts=None):
+    """``render_loss_fast`` forward and backward on ``fields``: (loss,
+    {field: gradient}). With ``counts`` (a dict), the trace kernels'
+    launches of the forward and of the backward are recorded in it, each
+    counted from 0."""
+    from tinyraytracing_tpu_torch.diff import SceneParams, render_loss_fast
+    from tinyraytracing_tpu_torch.ops import bvh_intersect, slot_intersect, trace
+
+    mods = (trace, bvh_intersect, slot_intersect)
+    read = lambda: {k: v for m in mods for k, v in m.LAUNCHES.items()}
+    p = SceneParams.init_from(scene, cam, *fields)
+    for t in p.tensors():
+        t.requires_grad_(True)
+    for m in mods:
+        m.reset_launch_counts()
+    loss = render_loss_fast(p, scene, cam, key, target, cfg, DIFF_SPP)
+    if counts is not None:
+        counts["forward"] = read()
+        for m in mods:
+            m.reset_launch_counts()
+    loss.backward()
+    if counts is not None:
+        counts["backward"] = read()
+    return loss.detach(), {f: getattr(p, f).grad for f in fields}
+
+
+def _diff_report(label, scene, cam, fields, cfg, key):
+    """One main-path run of the fast path on the card: forward + backward
+    of ``render_loss_fast`` (counted and timed alone, peak memory), the
+    forward alone for the traced-ray count, and the same forward +
+    backward again under torch.profiler (device ops, busy time, the trace
+    kernels' time). Returns (ok, launch counts)."""
+    from tinyraytracing_tpu_torch.diff import SceneParams, apply_params, render_diff
+
+    target = torch.zeros(cam.height, cam.width, 3, device=scene.device)
+    run = lambda counts=None: _loss_and_grads(scene, cam, fields, cfg, key,
+                                              target, counts)
+    run()                                  # warm: allocator, records
+    counts = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss, grads = run(counts)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    with torch.no_grad():
+        s2, c2 = apply_params(scene, cam,
+                              SceneParams.init_from(scene, cam, *fields))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, rays = render_diff(s2, c2, key, cfg, DIFF_SPP, return_rays=True)
+        rays = float(rays)
+        fwd_secs = time.perf_counter() - t0
+    events, mhz = _device_events(run)
+    n_dev = len(events)
+    busy_ms = sum(e.device_time_total for e in events) / 1e3
+    by_name = {}
+    for e in events:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3
+    kern = [e.device_time_total for e in events if "trace_kernel" in e.name]
+    kern_ms, n_kern = sum(kern) / 1e3, len(kern)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
+    ms = 1e3 * secs
+    log(f"  {label}, max_depth {cfg.max_depth}, {DIFF_SPP} spp, params "
+        f"{'+'.join(fields)}: forward + backward {secs:.3f} s for {rays:.0f} "
+        f"traced rays = {rays / secs:.4g} rays/s (forward alone {fwd_secs:.3f}"
+        f" s, {rays / fwd_secs:.4g} rays/s); loss {float(loss):.6g}; peak "
+        f"device memory {peak / 2**20:.1f} MiB")
+    log(f"    launches: forward {counts['forward']}, backward (the "
+        f"checkpointed bounces' recompute) {counts['backward']}")
+    log(f"    the same forward + backward under torch.profiler: {n_dev} "
+        f"device ops, device busy {busy_ms:.1f} ms = {100 * busy_ms / ms:.1f}% "
+        f"of the unprofiled {ms:.1f} ms (idle {100 * (1 - busy_ms / ms):.0f}%)"
+        f"; in {n_kern} recorded trace-kernel launches {kern_ms:.2f} ms = "
+        f"{100 * kern_ms / ms:.2f}%, the other device ops {busy_ms - kern_ms:.1f}"
+        f" ms; {_mhz(mhz)} after it")
+    log("    the most device time: " + "; ".join(
+        f"{name[:60]} {t:.1f} ms" for name, t in top))
+    fwd, bwd = counts["forward"], counts["backward"]
+    ok = (bool(torch.isfinite(loss)) and float(loss) > 0
+          and all(bool(torch.isfinite(g).all()) and float(g.abs().sum()) > 0
+                  for g in grads.values())
+          and fwd["trace_closest"] > 0 and fwd["trace_occlusion"] > 0
+          and bwd["trace_closest"] > 0
+          and all(c[k] == 0 for c in (fwd, bwd) for k in
+                  ("trace_near", "bvh_intersect", "slot_intersect")))
+    return ok, counts
+
+
+def phase_diff(dev):
+    """Phase 6: the fast differentiable path (``diff.fast``) on the card,
+    at BASELINE config 4's scene: ``render_loss_fast`` forward + backward
+    on cornell 512x512 in kd + vertex_offset; four ``make_train_step``
+    steps there in kd; one forward + backward in vertex_offset on
+    grid:100000 512x512 (a refit of its tree every call), and that
+    refit's own time; then the gradients on the card against the CPU's
+    at 32x32. Returns (ok, the cornell run's launch counts)."""
+    import math
+
+    from tinyraytracing_tpu_torch.config import RenderConfig
+    from tinyraytracing_tpu_torch.diff import (
+        SceneParams, make_train_step, render_diff, render_loss_fast,
+    )
+    from tinyraytracing_tpu_torch.diff.refit import refit_bvh
+    from tinyraytracing_tpu_torch.models.procedural import cornell_box, quad_grid
+    from tinyraytracing_tpu_torch.ops.bvh import attach_bvh
+    from tinyraytracing_tpu_torch.ops.rng import master_key_data
+
+    cfg, key = RenderConfig(max_depth=DIFF_DEPTH), master_key_data(0)
+    log("phase 6: the differentiable fast path (render_loss_fast: trace "
+        "kernels forward, path replay backward)")
+    scene, cam = cornell_box(512, 512, device=dev)
+    scene = attach_bvh(scene, cfg)
+    ok, counts = _diff_report("cornell 512x512", scene, cam,
+                              ("kd", "vertex_offset"), cfg, key)
+
+    # Adam in kd: on the cornell box a vertex step beyond the tie band
+    # flips the emissive tie-break of the light, coplanar with the ceiling
+    with torch.no_grad():
+        target = render_diff(scene, cam, key, cfg, DIFF_SPP)
+    step, init = make_train_step(scene, cam, target, cfg, DIFF_SPP,
+                                 learning_rate=0.02, loss_fn=render_loss_fast)
+    state = init(SceneParams(kd=scene.kd * 0.5 + 0.1))
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(4):
+        state, loss = step(state, key)
+        losses.append(float(loss))
+    log(f"  make_train_step (Adam, lr 0.02) in kd from kd/2 + 0.1 toward the "
+        f"render at kd, cornell 512x512: losses {losses} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    ok &= all(map(math.isfinite, losses)) and losses[-1] < losses[0]
+
+    grid, gcam = quad_grid(100_000, 512, 512, device=dev)
+    grid = attach_bvh(grid, cfg)
+    log(f"  grid:100000: {grid.num_triangles} triangles, {grid.bvh.n_nodes} "
+        f"binary nodes in {grid.bvh.n_levels} levels, {grid.bvh.packed.n_wide} "
+        f"wide nodes, builder {grid.bvh.builder}")
+    ok_g, _ = _diff_report("grid:100000 512x512", grid, gcam,
+                           ("vertex_offset",), cfg, key)
+    ok &= ok_g and grid.bvh.builder == "native"
+    with torch.no_grad():
+        refit = lambda: refit_bvh(grid)
+        events, mhz = _device_events(lambda: [refit() for _ in range(10)])
+        dev_ms = sum(e.device_time_total for e in events) / 1e3 / 10
+        host_ms = _host_ms(refit, 10)
+    log(f"  refit_bvh of grid:100000's tree: {dev_ms:.3f} ms device (the sum "
+        f"of its launches under torch.profiler over 10 calls, / 10), "
+        f"{host_ms:.3f} ms host-inclusive per call; {_mhz(mhz)} after it")
+
+    # the backward's scatter of cotangent rows at the path's shapes (one
+    # cotangent row per lane of a bounce): index_add_, which the port's
+    # gathers (ops.lookup.gather_rows) get from index_select, against the
+    # sorting index_put_ that a plain tensor[rows] gather gets
+    R = 512 * 512
+    for T in (4, 32, grid.num_triangles):
+        rows = torch.randint(0, T, (R,), device=dev)
+        g = torch.randn(R, 3, device=dev)
+        zero = torch.zeros(T, 3, device=dev)
+        put = _host_ms(lambda: zero.clone().index_put_((rows,), g,
+                                                       accumulate=True))
+        add = _host_ms(lambda: zero.clone().index_add_(0, rows, g))
+        log(f"  scatter of {R} cotangent rows into a {T}-row table: "
+            f"index_put_(accumulate) {put:.4f} ms, index_add_ {add:.4f} ms "
+            f"(CUDA events around 20 calls)")
+
+    # the card against the CPU at 32x32
+    small, scam = cornell_box(32, 32, device="cpu")
+    small = attach_bvh(small, cfg)
+    fields = ("kd", "radiance", "vertex_offset", "eye")
+    out = {}
+    for where in ("cuda", "cpu"):
+        s = small.to(where)
+        t0 = time.perf_counter()
+        loss, grads = _loss_and_grads(
+            s, scam, fields, cfg, key, torch.zeros(32, 32, 3, device=where))
+        out[where] = (float(loss), {f: g.cpu() for f, g in grads.items()},
+                      time.perf_counter() - t0)
+    (lc, gc, tc), (lp, gp, tp) = out["cuda"], out["cpu"]
+    loss_rel = abs(lc - lp) / abs(lp)
+    errs = {f: float((gc[f] - gp[f]).norm() / gp[f].norm()) for f in fields}
+    log(f"  card vs CPU, cornell 32x32 in {'+'.join(fields)}: cuda "
+        f"{tc:.2f} s, cpu {tp:.2f} s; loss {lc:.7g} vs {lp:.7g} ({loss_rel:.3g} "
+        f"relative, bound {DIFF_LOSS_RTOL:g}); gradient distance / norm "
+        + ", ".join(f"{f} {e:.3g}" for f, e in errs.items())
+        + f" (bound {DIFF_GRAD_RTOL:g})")
+    ok &= loss_rel <= DIFF_LOSS_RTOL and all(
+        e <= DIFF_GRAD_RTOL for e in errs.values())
+    log(f"phase 6: {'ok' if ok else 'FAILED'}")
+    return ok, counts
 
 
 # ---------------------------------------------------------------------------
@@ -1556,6 +1786,13 @@ def main(argv=None) -> int:
         f"python {sys.version.split()[0]}")
     secs, logs = kernels.build()
     log(f"phase 1: kernels built in {secs:.1f}s")
+    from tinyraytracing_tpu_torch import native
+
+    t0 = time.perf_counter()
+    for src in ("bvh_builder.cc", "objparser.cc"):
+        native._library(src)
+    log(f"  native BVH builder and OBJ parser built (g++) in "
+        f"{time.perf_counter() - t0:.1f}s")
     for src, text in logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
@@ -1576,11 +1813,15 @@ def main(argv=None) -> int:
     ok4 = phase_render_vs_render(dev)
     ok4b = phase_scan_vs_scan(dev)
     ok4c = phase_persistent_vs_persistent(dev)
+    ok6, diff_launches = phase_diff(dev)
 
     # no single PyTorch call computes a BVH walk or brute-force closest
     # hit; the packet sums have one (a sum over each packet)
     kern = [dict(name=k, route="cuda", source=SOURCES[k], replaces=REPLACES[k],
-                 launches=launches.get(k, 0), max_abs_err=r["max_abs_err"],
+                 launches=launches.get(k, 0),
+                 diff_launches={w: diff_launches[w][k]
+                                for w in ("forward", "backward")},
+                 max_abs_err=r["max_abs_err"],
                  ms=r.get("ms"), device_ms=r.get("device_ms"),
                  host_ms=r.get("host_ms"), plain_ms=r.get("plain_ms"),
                  bound_ms=r.get("bound_ms"), bound_by=r.get("bound_by"),
@@ -1592,7 +1833,7 @@ def main(argv=None) -> int:
               "cli scan render": ok3b, "cli persistent render": ok3c,
               "near queue render": ok3d, "render vs render": ok4,
               "scan vs scan": ok4b, "persistent vs persistent": ok4c,
-              "chunked resume": ok5}
+              "chunked resume": ok5, "diff": ok6}
     log("phases: " + ", ".join(f"{k} {'ok' if v else 'FAILED'}"
                                for k, v in phases.items()))
     if not all(phases.values()):

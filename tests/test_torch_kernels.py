@@ -1,7 +1,8 @@
 """The CUDA kernels (csrc/trace.cu in both walk orders, csrc/bvh_intersect.cu,
 csrc/slot_intersect.cu) against their plain PyTorch versions on the same
-CUDA tensors, at small size. They need a CUDA device
-and nvcc, so they skip elsewhere; on the GPU machine run
+CUDA tensors, at small size, and the fast differentiable path on them.
+They need a CUDA device and nvcc, so they skip elsewhere; on the GPU
+machine run
 
     python -m pytest tests/test_torch_kernels.py -q --noconftest
 
@@ -204,3 +205,32 @@ def test_auto_intersect_launches_kernels_on_cuda(device):
     assert bvh_intersect.LAUNCHES == {"bvh_intersect": 1}
     assert slot_intersect.LAUNCHES == {"slot_intersect": 1}
     assert torch.equal(a.t, b.t) and torch.equal(a.idx, b.idx)
+
+
+def test_fused_trace_diff_on_the_card(device):
+    """``render_loss_fast`` on the card: the forward and the backward's
+    recompute launch the trace kernel (never the plain walk), and the
+    gradients match the CPU's within 1e-2 of their norm (the tolerance
+    of chip_smoke.py's phase 6)."""
+    from tinyraytracing_tpu_torch.diff import SceneParams, render_loss_fast
+    from tinyraytracing_tpu_torch.ops.rng import master_key_data
+
+    scene, cam = cornell_box(16, 16, device="cpu")
+    scene = attach_bvh(scene, RenderConfig())
+    grads = {}
+    for dev in ("cpu", device):
+        s = scene.to(dev)
+        p = SceneParams.init_from(s, cam, "kd", "vertex_offset")
+        for t in p.tensors():
+            t.requires_grad_(True)
+        trace.reset_launch_counts()
+        loss = render_loss_fast(p, s, cam, master_key_data(1),
+                                torch.zeros(16, 16, 3, device=dev),
+                                RenderConfig(max_depth=3), 2)
+        fwd = trace.LAUNCHES["trace_closest"]
+        loss.backward()
+        bwd = trace.LAUNCHES["trace_closest"] - fwd
+        assert (fwd > 0 and bwd > 0) == (dev == device)
+        grads[str(dev)] = [t.grad.cpu() for t in p.tensors()]
+    for a, b in zip(grads[str(device)], grads["cpu"]):
+        assert float((a - b).norm()) <= 1e-2 * float(b.norm())

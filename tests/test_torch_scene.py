@@ -88,9 +88,10 @@ def test_root_leaf_tree_widens_to_one_node():
     nodes_j, perm_j = jbvh.build_bvh(v, leaf_size=8)
     nodes_t, perm_t = tbvh.build_bvh(v, leaf_size=8)
     np.testing.assert_array_equal(perm_t, perm_j)
-    wide_j, depth_j, _ = jbvh.widen_bvh(nodes_j)
-    wide_t, depth_t = tbvh.widen_bvh(nodes_t)
+    wide_j, depth_j, bmap_j = jbvh.widen_bvh(nodes_j)
+    wide_t, depth_t, bmap_t = tbvh.widen_bvh(nodes_t)
     np.testing.assert_array_equal(wide_t, wide_j)
+    np.testing.assert_array_equal(bmap_t, bmap_j)
     assert depth_t == depth_j == 1
     assert wide_t.shape == (1, 128)
     assert wide_t[0, 6] == -(0 * 64 + 5 + 2)

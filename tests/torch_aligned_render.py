@@ -9,7 +9,10 @@ A SCENE written ``scan:<scene>`` renders the scan-renderer cases of
 tests/test_torch_scan_render.py (``SCAN_CASES``) instead of the queue's;
 one written ``textured:<dir>`` loads the scene files of
 tests/test_torch_textures.py from ``<dir>`` with each package's
-``load_scene`` and renders ``TEXTURED_CASES``.
+``load_scene`` and renders ``TEXTURED_CASES``; one written ``diff:<scene>``
+saves the fast differentiable path's image (``render_diff``) and the
+gradients of ``render_loss_fast`` and of the scan renderer's
+``render_loss`` in ``DIFF_FIELDS`` (tests/test_torch_diff.py).
 
 Three things make the JAX package's CPU render differ from the port's in
 the last ulp, and each of them alone flips a few shadow and bounce
@@ -27,7 +30,8 @@ percent of the pixels of a 16x16 render move by one path's share:
   renderer's "bvh_pallas" and "pallas" backends run their kernels in
   interpret mode on the CPU anyway.)
 - XLA's sqrt, rsqrt, sin, cos, arcsin, arccos and pow differ from
-  PyTorch's in the last ulp. Here the port computes them with XLA's.
+  PyTorch's in the last ulp. Here the port computes them with XLA's (their
+  derivatives with PyTorch's, so gradients flow through them).
 
 With all three aligned the two renders agree to float rounding of the
 pixel sums; tests/test_torch_render.py holds them to that.
@@ -47,6 +51,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 from jax import lax  # noqa: E402
 
+import tinyraytracing_tpu.diff.fast as jfast  # noqa: E402
 import tinyraytracing_tpu.ops.pallas_trace as jtrace  # noqa: E402
 from tinyraytracing_tpu.config import RenderConfig as JConfig  # noqa: E402
 from tinyraytracing_tpu.integrator.fused import render_fused_stats_jit  # noqa: E402
@@ -127,26 +132,48 @@ def scenes(name):
     return js, jcam, port_scene(js), tcam
 
 
-def on_xla(fn):
-    """A torch-tensor function computed by XLA (this process's flags)."""
+def on_xla(fn, torch_fn):
+    """A torch-tensor function whose value XLA computes (this process's
+    flags) and whose derivative is that of the PyTorch function
+    ``torch_fn``, the same function."""
     jf = jax.jit(fn)
 
-    def call(*args):
-        a = [x.numpy() if isinstance(x, torch.Tensor) else x for x in args]
-        return torch.from_numpy(np.array(jf(*a)))
-    return call
+    class OnXla(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, *args):
+            ctx.args = args
+            a = [x.detach().numpy() if isinstance(x, torch.Tensor) else x
+                 for x in args]
+            return torch.from_numpy(np.array(jf(*a)))
+
+        @staticmethod
+        def backward(ctx, g):
+            diff = lambda x: isinstance(x, torch.Tensor) and x.is_floating_point()
+            with torch.enable_grad():
+                xs = [x.detach().requires_grad_() if diff(x) else x
+                      for x in ctx.args]
+                out = torch_fn(*xs)
+                gs = iter(torch.autograd.grad(
+                    out, [x for x in xs if diff(x)], g.to(out.dtype),
+                    allow_unused=True))
+            return tuple(next(gs) if diff(x) else None for x in ctx.args)
+
+    return OnXla.apply
 
 
 def align():
-    """The JAX renderer traces with its kernel; the port's transcendentals
-    are XLA's (normalize as the JAX package's: x * rsqrt(max(|x|^2, 1e-30)))."""
+    """The JAX renderers trace with their kernel; the port's
+    transcendentals are XLA's (normalize as the JAX package's:
+    x * rsqrt(max(|x|^2, 1e-30)))."""
     jtrace.fused_trace_planes = functools.partial(jtrace.fused_trace_planes,
                                                   force_kernel=True)
+    jfast.fused_trace_planes = jtrace.fused_trace_planes
     for name, fn in (("sqrt", jnp.sqrt), ("sin", jnp.sin), ("cos", jnp.cos),
                      ("arcsin", jnp.arcsin), ("arccos", jnp.arccos),
                      ("pow", jnp.power)):
-        setattr(torch, name, on_xla(fn))
-    rsqrt = on_xla(lambda l2: lax.rsqrt(jnp.maximum(l2, 1e-30)))
+        setattr(torch, name, on_xla(fn, getattr(torch, name)))
+    rsqrt = on_xla(lambda l2: lax.rsqrt(jnp.maximum(l2, 1e-30)),
+                   lambda l2: torch.rsqrt(torch.clamp_min(l2, 1e-30)))
     vec.normalize = lambda a: vec.scale(a, rsqrt(vec.length2(a)))
 
 
@@ -197,6 +224,52 @@ def textured_images(directory, images):
         plain, tcam, RenderConfig(), spp=SPP, seed=SEED, lanes=LANES)
 
 
+# the differentiable paths: render_diff's image, and the losses of
+# render_loss_fast ("fast") and of render_loss over the scan renderer with
+# the brute intersector ("scan") against a black target, with their
+# gradients in these parameters, at this depth
+DIFF_FIELDS = ("kd", "radiance", "vertex_offset", "eye")
+DIFF_DEPTH = 3
+
+
+def diff_arrays(name, images):
+    """The differentiable paths on scene ``name`` (with refit metadata),
+    both packages: the image, the losses and their gradients."""
+    from tinyraytracing_tpu.diff.inverse import SceneParams as JParams
+    from tinyraytracing_tpu.diff.inverse import render_loss as jax_render_loss
+    from tinyraytracing_tpu_torch.diff import (
+        SceneParams, render_diff, render_loss, render_loss_fast,
+    )
+
+    js, jcam, ts, tcam = scenes(name)
+    jkey, tkey = jax.random.PRNGKey(SEED), master_key_data(SEED)
+    target = np.zeros((SIZE, SIZE, 3), np.float32)
+    jcfg, tcfg = JConfig(max_depth=DIFF_DEPTH), RenderConfig(max_depth=DIFF_DEPTH)
+    images[f"diff-{name}-image-jax"] = np.asarray(
+        jfast.render_diff(js, jcam, jkey, jcfg, SPP))
+    with torch.no_grad():
+        images[f"diff-{name}-image-port"] = render_diff(
+            ts, tcam, tkey, tcfg, SPP).numpy()
+    losses = (("fast", jfast.render_loss_fast, render_loss_fast, {}),
+              ("scan", jax_render_loss, render_loss, dict(intersector="brute")))
+    for kind, jloss, tloss_fn, kw in losses:
+        jcfg = JConfig(max_depth=DIFF_DEPTH, **kw)
+        tcfg = RenderConfig(max_depth=DIFF_DEPTH, **kw)
+        p0 = JParams.init_from(js, jcam, *DIFF_FIELDS)
+        loss, g = jax.jit(jax.value_and_grad(lambda p: jloss(
+            p, js, jcam, jkey, jnp.asarray(target), jcfg, SPP)))(p0)
+        images[f"diff-{name}-{kind}-loss-jax"] = np.float32(loss)
+        p = SceneParams.init_from(ts, tcam, *DIFF_FIELDS)
+        for t in p.tensors():
+            t.requires_grad_(True)
+        tloss = tloss_fn(p, ts, tcam, tkey, torch.from_numpy(target), tcfg, SPP)
+        tloss.backward()
+        images[f"diff-{name}-{kind}-loss-port"] = np.float32(tloss.item())
+        for f in DIFF_FIELDS:
+            images[f"diff-{name}-{kind}-grad-{f}-jax"] = np.asarray(getattr(g, f))
+            images[f"diff-{name}-{kind}-grad-{f}-port"] = getattr(p, f).grad.numpy()
+
+
 def run_processes(out_dir, names):
     """Render ``names`` (one process each, side by side, with FMA
     contraction off) into ``out_dir``; returns all their images."""
@@ -235,6 +308,8 @@ def main(out, names):
             scan_images(name[5:], images)
         elif name.startswith("textured:"):
             textured_images(name[9:], images)
+        elif name.startswith("diff:"):
+            diff_arrays(name[5:], images)
     if not names:
         queue = list(dict.fromkeys(n for n, _ in CASES))
     for name in queue:

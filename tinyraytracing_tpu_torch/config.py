@@ -74,8 +74,8 @@ class RenderConfig:
     shadow_compact: str = "auto"   # auto | on | off
     walk_order: str = "preorder"   # preorder | near
     trace_super_rays: int = 131072
-    # differentiation (gradients are not ported yet; accum_dtype is read
-    # nowhere, as in the JAX package)
+    # differentiation (diff/: detach_sampling holds the sampled bounce
+    # directions fixed; accum_dtype is read nowhere, as in the JAX package)
     detach_sampling: bool = True
     accum_dtype: str = "float32"
 

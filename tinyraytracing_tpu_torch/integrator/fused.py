@@ -34,7 +34,9 @@ from tinyraytracing_tpu_torch.config import (
 )
 from tinyraytracing_tpu_torch.models.camera import Camera, camera_basis
 from tinyraytracing_tpu_torch.ops import vec
-from tinyraytracing_tpu_torch.ops.lookup import CHAIN_LIMIT, chain_lookup, chain_lookup_planes
+from tinyraytracing_tpu_torch.ops.lookup import (
+    CHAIN_LIMIT, chain_lookup, chain_lookup_planes, gather_rows,
+)
 from tinyraytracing_tpu_torch.ops.rng import bits_to_uniform, bounce_uniforms, path_keys
 from tinyraytracing_tpu_torch.ops.sampling import PI, f32_transcendental
 from tinyraytracing_tpu_torch.ops.trace import fused_trace_planes
@@ -195,7 +197,7 @@ def _nee_geometry(scene, config, l, point, pn, wi, kd_val, ks, ns,
         # selects no row (a zero row, masked by ``valid`` below)
         tab = torch.cat([t[l, :K] for t in tabs], dim=1)     # (K, 18)
         tab = torch.cat([tab, tab.new_zeros((1, 18))])
-        rows = tab[sel]                               # (R, 18) exact rows
+        rows = gather_rows(tab, sel)                  # (R, 18) exact rows
         p = lambda col: rows[:, col]
         lv0, lv1, lv2 = (p(0), p(1), p(2)), (p(3), p(4), p(5)), (p(6), p(7), p(8))
         ln0, ln1, ln2 = (p(9), p(10), p(11)), (p(12), p(13), p(14)), (p(15), p(16), p(17))

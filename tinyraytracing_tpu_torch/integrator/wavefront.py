@@ -17,8 +17,9 @@ NaN-free.
 The sample streams are ``jax.random``'s: bounce ``depth`` draws from
 ``kb = fold_in(key, depth)``, with ``uniform(fold_in(kb, 0), (R, L, 4))``
 for NEE and ``uniform(fold_in(kb, 1), (5, R))`` for roulette and BSDF.
-``config.detach_sampling`` only stops gradients in the JAX package; this
-forward-only port has no gradients, so it is a no-op here.
+Under ``config.detach_sampling`` the sampled bounce direction is
+detached, as in the JAX package: ``diff.inverse.render_loss``
+differentiates this loop with the sampling decisions held fixed.
 """
 
 from __future__ import annotations
@@ -106,6 +107,8 @@ def trace(scene, org, d, key, config: RenderConfig, return_stats: bool = False):
         new_dir, new_type = sample_bsdf(
             d, pn, scene.kd[m], scene.ks[m], scene.ns[m], scene.ni[m],
             u[1], u[2], u[3], u[4])
+        if config.detach_sampling:
+            new_dir = new_dir.detach()
         valid = new_type != INVALID
         if return_stats:     # launches of their own: only when asked for
             stats["primary"].append(alive.sum())

@@ -64,11 +64,22 @@ class PackedLeaves:
     leaf_size: int
     n_wide: int
     wide_depth: int
+    # refit metadata (diff/refit.py): the binary node behind each wide
+    # child (-1 empty), and which slots hold a triangle (pads keep zero
+    # Woop rows); None for a tree packed without them
+    wn_bnode: torch.Tensor | None = None    # (n_wide, 8) int32
+    slot_valid: torch.Tensor | None = None  # (n_leaves*32,) bool
 
 
 @dataclasses.dataclass
 class BVHArrays:
-    """Flattened binary BVH in depth-first preorder plus its packed form."""
+    """Flattened binary BVH in depth-first preorder plus its packed form.
+    The refit metadata (``ops.bvh.refit_metadata``) is recorded by
+    ``attach_bvh``; a tree built elsewhere (``assemble_scene``'s
+    ``bvh_host``) keeps it None, as in the JAX package, and then
+    ``diff.inverse.apply_params`` drops the tree under vertex offsets.
+    ``builder`` says which builder made the tree ("native", "numpy"; None
+    where it was not recorded, e.g. a tree carried across from JAX)."""
 
     nmin: torch.Tensor       # (N, 3) AABB min (includes the build's pad)
     nmax: torch.Tensor       # (N, 3) AABB max
@@ -79,6 +90,12 @@ class BVHArrays:
     n_nodes: int
     leaf_size: int
     aabb_pad: float = 1e-3
+    tri_leaf: torch.Tensor | None = None   # (T,) leaf node of each triangle
+    level: torch.Tensor | None = None      # (N,) depth of each node (root 0)
+    child_l: torch.Tensor | None = None    # (N,) left child (i+1) or -1
+    child_r: torch.Tensor | None = None    # (N,) right child (skip[i+1]) or -1
+    n_levels: int = 0
+    builder: str | None = None
 
     @staticmethod
     def from_nodes(nodes, packed, leaf_size, aabb_pad) -> "BVHArrays":
@@ -87,7 +104,7 @@ class BVHArrays:
             nmin=t("nmin"), nmax=t("nmax"), start=t("start"),
             count=t("count"), skip=t("skip"), packed=packed,
             n_nodes=int(nodes["nmin"].shape[0]), leaf_size=int(leaf_size),
-            aabb_pad=float(aabb_pad),
+            aabb_pad=float(aabb_pad), builder=nodes.get("builder"),
         )
 
     def to(self, device) -> "BVHArrays":
@@ -201,6 +218,9 @@ BVH_ARRAYS = ("nmin", "nmax", "start", "count", "skip")
 BVH_STATICS = ("n_nodes", "leaf_size", "aabb_pad")
 PACKED_ARRAYS = ("P", "tid", "node_box", "node_meta", "PS", "WN")
 PACKED_STATICS = ("n_nodes", "n_leaves", "leaf_size", "n_wide", "wide_depth")
+# the refit metadata: carried across where present, else None
+BVH_REFIT = ("tri_leaf", "level", "child_l", "child_r")
+PACKED_REFIT = ("wn_bnode", "slot_valid")
 
 
 def scene_from_arrays(d: dict, statics: dict, device="cuda") -> Scene:
@@ -212,20 +232,27 @@ def scene_from_arrays(d: dict, statics: dict, device="cuda") -> Scene:
     (omit them all for a scene without a BVH). ``statics`` holds
     ``mtl_names``, ``light_names``, ``lt_counts`` and, with a BVH, the
     integer fields under the same dotted keys (``"bvh.n_nodes"``,
-    ``"bvh.packed.n_wide"``, ...). Extra keys are ignored, so the fields
-    of a JAX Scene can be passed as they are."""
+    ``"bvh.packed.n_wide"``, ...). The refit metadata (``BVH_REFIT``,
+    ``PACKED_REFIT``, ``"bvh.n_levels"``) comes across where present and
+    is None where absent; ``BVHArrays.builder`` is not carried (None).
+    Extra keys are ignored, so the fields of a JAX Scene can be passed as
+    they are."""
     t = lambda a: torch.from_numpy(np.array(a)).to(device)
+    opt = lambda key: t(d[key]) if key in d else None
     bvh = None
     if "bvh.nmin" in d:
         packed = PackedLeaves(
             **{k: t(d[f"bvh.packed.{k}"]) for k in PACKED_ARRAYS},
             **{k: int(statics[f"bvh.packed.{k}"]) for k in PACKED_STATICS},
+            **{k: opt(f"bvh.packed.{k}") for k in PACKED_REFIT},
         )
         bvh = BVHArrays(
             **{k: t(d[f"bvh.{k}"]) for k in BVH_ARRAYS}, packed=packed,
             n_nodes=int(statics["bvh.n_nodes"]),
             leaf_size=int(statics["bvh.leaf_size"]),
             aabb_pad=float(statics.get("bvh.aabb_pad", 1e-3)),
+            **{k: opt(f"bvh.{k}") for k in BVH_REFIT},
+            n_levels=int(statics.get("bvh.n_levels", 0)),
         )
     return Scene(
         **{k: t(d[k]) for k in SCENE_ARRAYS}, bvh=bvh,
@@ -246,7 +273,12 @@ def scene_to_arrays(scene: Scene) -> tuple[dict, dict]:
         d.update({f"bvh.{k}": host(getattr(b, k)) for k in BVH_ARRAYS})
         d.update({f"bvh.packed.{k}": host(getattr(pk, k))
                   for k in PACKED_ARRAYS})
-        statics.update({f"bvh.{k}": getattr(b, k) for k in BVH_STATICS})
+        d.update({f"bvh.{k}": host(getattr(b, k)) for k in BVH_REFIT
+                  if getattr(b, k) is not None})
+        d.update({f"bvh.packed.{k}": host(getattr(pk, k))
+                  for k in PACKED_REFIT if getattr(pk, k) is not None})
+        statics.update({f"bvh.{k}": getattr(b, k)
+                        for k in (*BVH_STATICS, "n_levels")})
         statics.update({f"bvh.packed.{k}": getattr(pk, k)
                         for k in PACKED_STATICS})
     return d, statics
@@ -436,11 +468,21 @@ def load_scene(
     """Load a scene the way the reference program does (main.cpp:66-69),
     returning the Scene (on ``device``, the card unless the caller asks
     for the CPU) and the Camera from the XML. With ``with_bvh`` the SAH BVH
-    is built on the host and attached."""
+    is built on the host and attached. The OBJ parse and the build take
+    the native code first, as the JAX package does, and numpy where g++
+    is missing (logged once)."""
+    from tinyraytracing_tpu_torch.native import (
+        BuildError, log_fallback, parse_obj_native,
+    )
+
     if basedir is None:
         basedir = os.path.dirname(os.path.abspath(xml_path))
     config = parse_scene_xml(xml_path)
-    mesh = parse_obj(obj_path)
+    try:
+        mesh = parse_obj_native(obj_path)
+    except BuildError as e:
+        log_fallback(e)
+        mesh = parse_obj(obj_path)
     materials = parse_mtl(mtl_path)
     bvh_host = None
     if with_bvh:

@@ -8,9 +8,20 @@ The tree is flattened to depth-first preorder with skip links, collapsed to
 8-wide nodes (``widen_bvh``) and packed into per-leaf 128-lane blocks
 (``pack_bvh_leaves``) — the layouts the trace kernels read.
 
-Only the numpy construction is ported; the JAX package's native C++
-version (``native/bvh_builder.cc``) is held equal to it by that package's
-tests.
+``build_bvh_host`` builds with the native C++ builder
+(``native/bvh_builder.cc``, a copy of the JAX package's) as the JAX
+package does, and with the numpy ``build_bvh`` only where g++ is missing
+(logged once). The two give the same topology and permutation, but a
+node box can differ by one float32 ulp between them: the native builder
+takes the pad as a float32 (its C ``float pad``) and numpy as the float64
+``aabb_pad``, so ``min - pad`` can round to neighbouring float32 values.
+So only the native tree is the JAX package's tree bitwise, and the tree
+records which builder made it (``BVHArrays.builder``).
+
+``attach_bvh`` also records the refit metadata (``tri_leaf``, ``level``,
+``child_l``/``child_r``, ``n_levels``; ``PackedLeaves.wn_bnode`` and
+``slot_valid``) that ``diff/refit.py`` needs to move boxes and leaf
+payload with the vertices.
 """
 
 from __future__ import annotations
@@ -129,18 +140,53 @@ def build_bvh(
 def build_bvh_host(
     tri_v: np.ndarray, leaf_size: int = 8, aabb_pad: float = 1e-3
 ) -> tuple[dict, np.ndarray]:
-    """``build_bvh`` plus the build parameters recorded in the nodes dict.
-    Returns (nodes dict incl. 'leaf_size' and 'aabb_pad', permutation)."""
-    nodes, perm = build_bvh(np.asarray(tri_v), leaf_size, aabb_pad)
+    """Builder dispatch: the native C++ builder, else (no g++ here, logged
+    once) the numpy one. Returns (nodes dict incl. 'leaf_size', 'aabb_pad'
+    and 'builder' ("native" or "numpy"), permutation)."""
+    from tinyraytracing_tpu_torch.native import (
+        BuildError, build_bvh_native, log_fallback,
+    )
+
+    try:
+        nodes, perm = build_bvh_native(np.asarray(tri_v), leaf_size, aabb_pad)
+        nodes["builder"] = "native"
+    except BuildError as e:
+        log_fallback(e)
+        nodes, perm = build_bvh(np.asarray(tri_v), leaf_size, aabb_pad)
+        nodes["builder"] = "numpy"
     nodes["leaf_size"] = leaf_size
     nodes["aabb_pad"] = aabb_pad
     return nodes, perm
 
 
+def refit_metadata(nodes, T: int) -> dict:
+    """The static topology ``diff/refit.py`` sweeps (numpy): ``tri_leaf``
+    (T,) the leaf node of each permuted triangle, ``level`` (N,) each
+    node's depth, ``child_l``/``child_r`` (N,) an internal node's children
+    (i + 1 and skip[i + 1]; -1 at leaves), ``n_levels``."""
+    count = np.asarray(nodes["count"])
+    start = np.asarray(nodes["start"])
+    skip = np.asarray(nodes["skip"])
+    N = len(count)
+    tri_leaf = np.zeros(T, np.int32)
+    for i in np.nonzero(count > 0)[0]:
+        tri_leaf[start[i]:start[i] + count[i]] = i
+    level = np.zeros(N, np.int32)
+    child_l = np.full(N, -1, np.int32)
+    child_r = np.full(N, -1, np.int32)
+    for i in np.nonzero(count == 0)[0]:      # preorder: parents come first
+        l, r = i + 1, int(skip[i + 1])
+        child_l[i], child_r[i] = l, r
+        level[l] = level[r] = level[i] + 1
+    return dict(tri_leaf=tri_leaf, level=level, child_l=child_l,
+                child_r=child_r, n_levels=int(level.max()) + 1 if N else 1)
+
+
 def attach_bvh(scene, config: RenderConfig):
     """Build a BVH for ``scene`` and return a new Scene (on the same device)
-    with (a) triangles permuted to leaf order and (b) scene.bvh set.
-    Geometry is read back to the host: the build is numpy."""
+    with (a) triangles permuted to leaf order and (b) scene.bvh set, with
+    its refit metadata (``refit_metadata``). Geometry is read back to the
+    host for the build."""
     from tinyraytracing_tpu_torch.models.scene import BVHArrays
 
     host = lambda t: t.detach().cpu().numpy()
@@ -159,6 +205,10 @@ def attach_bvh(scene, config: RenderConfig):
     )
     bvh = BVHArrays.from_nodes(nodes, packed, config.leaf_size,
                                config.aabb_pad)
+    meta = refit_metadata(nodes, len(perm))
+    bvh = dataclasses.replace(
+        bvh, n_levels=meta.pop("n_levels"),
+        **{k: torch.from_numpy(a) for k, a in meta.items()})
     inv_perm = np.empty(len(perm), np.int64)
     inv_perm[np.asarray(perm)] = np.arange(len(perm))
     dev = scene.v0.device
@@ -181,12 +231,14 @@ def widen_bvh(nodes, arity: int = 8):
     ordered by binary preorder, so a stack walk that pushes children in
     reverse order pops them in the skip-link walk's order.
 
-    Returns (wide (n_wide, 128) float32, depth):
+    Returns (wide (n_wide, 128) float32, depth, bnode_map):
       lane c*8+k of a row = child c's [x0 y0 z0 x1 y1 z1 meta pad]
       meta >= 0: wide-node index of an internal child;
       meta <= -2: -(leaf_id*64 + count + 2) — leaf block id into
         PackedLeaves plus the leaf's occupied slot count;
       meta == -1: empty slot (box is zeroed, never acted on).
+    bnode_map (n_wide, 8) int32: the binary node behind each child slot
+    (-1 empty), through which ``diff/refit.py`` rewrites child boxes.
     A tree whose root is a leaf becomes one wide node with that leaf as
     its only child.
     """
@@ -249,13 +301,15 @@ def widen_bvh(nodes, arity: int = 8):
     wide = np.zeros((n_wide, 128), np.float32)
     wide[:, 6:64:8] = -1.0  # empty slots (kernel gates pushes on meta != -1,
     #                         so the zero box contents are never acted on)
+    bnode_map = np.full((n_wide, arity), -1, np.int32)
     for wi, row in enumerate(rows):
         for c_slot, (b_node, meta) in enumerate(row):
             o = c_slot * 8
             wide[wi, o:o + 3] = nmin[b_node]
             wide[wi, o + 3:o + 6] = nmax[b_node]
             wide[wi, o + 6] = np.float32(meta)
-    return wide, int(depth)
+            bnode_map[wi, c_slot] = b_node
+    return wide, int(depth), bnode_map
 
 
 def pack_bvh_leaves(nodes, woop_a, woop_b, gn, emissive, leaf_size,
@@ -367,7 +421,7 @@ def pack_bvh_leaves(nodes, woop_a, woop_b, gn, emissive, leaf_size,
     node_box[:, 7] = leaf_enc.astype(np.float32)
     node_meta = np.stack([skip.astype(np.int32), leaf_enc], axis=1)
 
-    wide, wide_depth = widen_bvh(nodes)
+    wide, wide_depth, wn_bnode = widen_bvh(nodes)
 
     t = torch.from_numpy
     return PackedLeaves(
@@ -379,4 +433,5 @@ def pack_bvh_leaves(nodes, woop_a, woop_b, gn, emissive, leaf_size,
         WN=t(wide),
         n_nodes=int(N), n_leaves=int(n_blk), leaf_size=int(leaf_size),
         n_wide=int(wide.shape[0]), wide_depth=int(wide_depth),
+        wn_bnode=t(wn_bnode), slot_valid=t(valid),
     )
