@@ -10,7 +10,19 @@ interrupts and resumes a checkpointed queue render, and runs the fast
 differentiable path (``diff.fast.render_loss_fast``: the trace kernels
 forward, path replay backward) forward and backward on cornell and on
 the 100K-triangle scene, with a few Adam steps and its gradients held to
-the CPU's. The CLI's tree must come from the native builder
+the CPU's, and the scan renderer's ``render_loss`` through the
+packet-BVH kernel (phase 6). Phase 7 runs the edge-sampled boundary terms
+(``diff/edge.py``): the finite-difference scenes of the CPU tests
+(``tests/torch_edge_scenes.py``) through the slot kernel, held to finite
+differences and to the same check on the CPU, then cornell at 512x512
+with 8,192 and 65,536 edge samples through the packet-BVH kernel, beside
+the same call without them. Phase 8 runs the regeneration oracles
+(``integrator/regen.py``): ``render_regen`` on the 100K-triangle scene
+(packet-BVH kernel) and ``render_persistent`` on cornell (slot kernel),
+each held to the scan render statistically and to itself on the CPU.
+Phases 7 and 8 also hold kernels 4 and 5 bitwise to their plain versions
+on dispatches copied from their own main-path calls (8,192, 131,072 and
+262,144 rays). The CLI's tree must come from the native builder
 (``native/``, built with g++ in phase 1). The slot kernel is also checked
 on grid6000 and on the tie scene of the CPU tests
 (``tests/torch_slot_emulate.py``). Run from the repository root:
@@ -22,8 +34,10 @@ a result when there is no CUDA device). The last line of standard output
 is {"ok": true, "device": {...}}; the line before it lists the kernels,
 each with its device time per launch (torch.profiler), its
 host-inclusive time (CUDA events around back-to-back calls), its
-launches on its main path and on the differentiable path (forward, and
-the backward's recompute). Each timed
+launches on its main paths (the oracles' included) and on the
+differentiable paths (forward, the backward's recompute, the scan
+``render_loss``, the edge terms at full size and on the FD scenes). Each
+timed
 set runs after ~50 ms of back-to-back launches that raise the card's
 clock from idle, and the log gives the SM clock nvidia-smi read right
 after it, marking readings below 1,500 MHz.
@@ -37,12 +51,14 @@ times the redesigned kernels of the parent's package and of this tree in
 turns (parent, this, this, parent) and checks their outputs bitwise equal:
 the trace kernels through ``ops.trace.fused_trace_planes`` (closest hit
 and occlusion, preorder and near-first), the packet sums, the packet-BVH
-kernel and the slot kernel. ``--sass TREE`` counts the SASS instructions
+kernel and the slot kernel; and times phase 6's scan ``render_loss``
+forward + backward (its gradients are not compared bitwise). ``--sass TREE`` counts the SASS instructions
 per slot test of the slot kernel of TREE's package.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import os
@@ -201,6 +217,43 @@ def _timed_ms(fn):
     e1.record()
     torch.cuda.synchronize()
     return out, e0.elapsed_time(e1)
+
+
+def _tests_module(name):
+    """A helper module of ``tests/``, loaded from its file: the card's
+    machine may have another package named tests."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod        # dataclasses look their module up there
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _kernel_modules():
+    from tinyraytracing_tpu_torch.ops import bvh_intersect, slot_intersect, trace
+
+    return (trace, bvh_intersect, slot_intersect)
+
+
+def _counted(fn):
+    """(``fn()``, every kernel's launches in it, counted from 0)."""
+    mods = _kernel_modules()
+    for m in mods:
+        m.reset_launch_counts()
+    out = fn()
+    return out, {k: v for m in mods for k, v in m.LAUNCHES.items()}
+
+
+def _top_ops(events, k=3):
+    """The ``k`` device ops with the most device time: (name, ms) pairs."""
+    by_name = {}
+    for e in events:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3
+    return sorted(by_name.items(), key=lambda kv: -kv[1])[:k]
 
 
 def _ulps(a, b):
@@ -411,20 +464,13 @@ def phase_kernels(dev):
         kinds = ("bvh", "slot") if name.startswith("cornell") else ("bvh",)
         ok2b &= phase_intersect_kernels(name, scene, cam, kinds, gen, reports)
         t0 = time.perf_counter()
-    import importlib.util
-
     from tinyraytracing_tpu_torch.models.procedural import quad_grid
 
     grid6k, cam = quad_grid(6000, device=dev)
     ok2b &= phase_intersect_kernels("grid6000 leaf 8", grid6k, cam, ("slot",),
                                     gen, reports)
-    # the tie scene of the slot kernel's CPU tests, loaded from its file
-    # (the card's machine may have another package named tests)
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
-                        "torch_slot_emulate.py")
-    spec = importlib.util.spec_from_file_location("torch_slot_emulate", path)
-    emulate = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(emulate)
+    # the tie scene of the slot kernel's CPU tests
+    emulate = _tests_module("torch_slot_emulate")
     ties, cam = emulate.tie_scene(device=dev)
     rays = _scan_probe_rays(ties, cam, gen)
     # its surfaces lie in the lights' planes: shadow rays from them never
@@ -575,23 +621,27 @@ def _scan_probe_rays(scene, cam, gen):
             "shadow": planes(point, sd)}
 
 
-def phase_intersect_kernels(name, scene, cam, kinds, gen, reports, rays=None):
+def phase_intersect_kernels(name, scene, cam, kinds, gen, reports, rays=None,
+                            cfg=None, phase="phase 2b"):
     """Kernels 4 ("bvh") and 5 ("slot") against their plain versions on the
-    scan path's three kinds of rays (``rays``, else ``_scan_probe_rays``):
-    every output plane bitwise equal. The slot kernel's cases also time an
-    empty kernel on its grid (the floor under its device time)."""
+    scan path's three kinds of rays (``rays``, else ``_scan_probe_rays``)
+    under ``cfg`` (default RenderConfig()): every output plane bitwise
+    equal. The slot kernel's cases also time an empty kernel on its grid
+    (the floor under its device time)."""
     from tinyraytracing_tpu_torch.config import RenderConfig
     from tinyraytracing_tpu_torch.ops import bvh_intersect as bi
     from tinyraytracing_tpu_torch.ops import slot_intersect as si
 
-    cfg = RenderConfig()
+    cfg = cfg or RenderConfig()
     t0 = time.perf_counter()
     rays = rays or _scan_probe_rays(scene, cam, gen)
     pk = scene.bvh.packed if scene.bvh is not None else None
     P, n_chunks = scene.slot_payload
     T = scene.num_triangles
-    log(f"phase 2b [{name}]: {T} triangles, {n_chunks} slot chunks, "
-        f"{SCAN_CHUNK} rays of each kind; setup {time.perf_counter() - t0:.1f}s")
+    n_rays = sorted({r.shape[1] for r in rays.values()})
+    log(f"{phase} [{name}]: {T} triangles, {n_chunks} slot chunks, "
+        f"{'/'.join(map(str, n_rays))} rays of each kind; setup "
+        f"{time.perf_counter() - t0:.1f}s")
     ok = True
     for kind in kinds:
         kname = "bvh_intersect" if kind == "bvh" else "slot_intersect"
@@ -639,6 +689,43 @@ def phase_intersect_kernels(name, scene, cam, kinds, gen, reports, rays=None):
                 rep.update(ms=kms, device_ms=kms, host_ms=hms, sm_mhz=mhz,
                            plain_ms=pms, bound_ms=bms, bound_by=by)
     return ok
+
+
+@contextlib.contextmanager
+def _captured_rays(kind, picks):
+    """While the block runs, copies of the rays the wrapper of kernel 4
+    (``kind`` "bvh") or 5 ("slot") is given on its calls numbered
+    ``picks`` (from 0): {"dispatch i": (6, R) planes}. The wrapper
+    launches as before; the copies let ``phase_intersect_kernels`` hold the
+    kernel to its plain version at a main path's own shapes and rays."""
+    from tinyraytracing_tpu_torch.ops import bvh_intersect, slot_intersect
+
+    mod, fn = ((bvh_intersect, "bvh_intersect_planes") if kind == "bvh"
+               else (slot_intersect, "slot_intersect_planes"))
+    real, seen, calls = getattr(mod, fn), {}, [0]
+
+    def copying(scene, rays, config):
+        if calls[0] in picks:
+            seen[f"dispatch {calls[0]}"] = rays.clone()
+        calls[0] += 1
+        return real(scene, rays, config)
+
+    setattr(mod, fn, copying)
+    try:
+        yield seen
+    finally:
+        setattr(mod, fn, real)
+
+
+def _main_path_rays_ok(name, scene, kind, seen, picks, cfg, reports, phase):
+    """The captured dispatches ``seen`` through ``phase_intersect_kernels``:
+    every one of ``picks`` captured, and each bitwise its plain version."""
+    if len(seen) != len(picks):
+        log(f"{phase} [{name}]: captured {sorted(seen)}, wanted the dispatches "
+            f"{sorted(picks)}")
+        return False
+    return phase_intersect_kernels(name, scene, None, (kind,), None, reports,
+                                   seen, cfg, phase)
 
 
 EMPTY_CU = r"""
@@ -1150,22 +1237,23 @@ DIFF_DEPTH, DIFF_SPP = 3, 2
 DIFF_LOSS_RTOL, DIFF_GRAD_RTOL = 1e-4, 1e-2
 
 
-def _loss_and_grads(scene, cam, fields, cfg, key, target, counts=None):
-    """``render_loss_fast`` forward and backward on ``fields``: (loss,
-    {field: gradient}). With ``counts`` (a dict), the trace kernels'
-    launches of the forward and of the backward are recorded in it, each
-    counted from 0."""
+def _loss_and_grads(scene, cam, fields, cfg, key, target, counts=None,
+                    loss_fn=None, **kw):
+    """``render_loss_fast`` (or ``loss_fn``) forward and backward on
+    ``fields``, with the keywords ``kw``: (loss, {field: gradient}). With
+    ``counts`` (a dict), the kernels' launches of the forward and of the
+    backward are recorded in it, each counted from 0."""
     from tinyraytracing_tpu_torch.diff import SceneParams, render_loss_fast
-    from tinyraytracing_tpu_torch.ops import bvh_intersect, slot_intersect, trace
 
-    mods = (trace, bvh_intersect, slot_intersect)
+    mods = _kernel_modules()
     read = lambda: {k: v for m in mods for k, v in m.LAUNCHES.items()}
     p = SceneParams.init_from(scene, cam, *fields)
     for t in p.tensors():
         t.requires_grad_(True)
     for m in mods:
         m.reset_launch_counts()
-    loss = render_loss_fast(p, scene, cam, key, target, cfg, DIFF_SPP)
+    loss = (loss_fn or render_loss_fast)(p, scene, cam, key, target, cfg,
+                                         DIFF_SPP, **kw)
     if counts is not None:
         counts["forward"] = read()
         for m in mods:
@@ -1176,17 +1264,16 @@ def _loss_and_grads(scene, cam, fields, cfg, key, target, counts=None):
     return loss.detach(), {f: getattr(p, f).grad for f in fields}
 
 
-def _diff_report(label, scene, cam, fields, cfg, key):
-    """One main-path run of the fast path on the card: forward + backward
-    of ``render_loss_fast`` (counted and timed alone, peak memory), the
-    forward alone for the traced-ray count, and the same forward +
-    backward again under torch.profiler (device ops, busy time, the trace
-    kernels' time). Returns (ok, launch counts)."""
-    from tinyraytracing_tpu_torch.diff import SceneParams, apply_params, render_diff
-
-    target = torch.zeros(cam.height, cam.width, 3, device=scene.device)
-    run = lambda counts=None: _loss_and_grads(scene, cam, fields, cfg, key,
-                                              target, counts)
+def _profile_loss(label, run, kernel, launches_ok):
+    """One main-path run of a loss's forward + backward (``run(counts)``
+    records the launches of each in ``counts``): warmed once, timed alone
+    with its peak memory, then run again under torch.profiler. Logs the
+    seconds, loss, peak memory, launches, device ops, busy/idle share, the
+    device time of the kernels whose name holds ``kernel``, the sorted
+    ``indexing_backward`` kernels and the top three device ops. Returns
+    (ok, seconds, {"forward": launches, "backward": launches}): ok holds
+    a finite positive loss, finite non-zero gradients and
+    ``launches_ok(forward, backward)``."""
     run()                                  # warm: allocator, records
     counts = {}
     torch.cuda.synchronize()
@@ -1196,6 +1283,56 @@ def _diff_report(label, scene, cam, fields, cfg, key):
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
+    events, mhz = _device_events(run)
+    ms = 1e3 * secs
+    busy_ms = sum(e.device_time_total for e in events) / 1e3
+    kern = [e.device_time_total for e in events if kernel in e.name]
+    sorted_bw = [e.device_time_total for e in events
+                 if "indexing_backward" in e.name]
+    fwd, bwd = counts["forward"], counts["backward"]
+    log(f"  {label}: forward + backward {secs:.3f} s; loss {float(loss):.6g}; "
+        f"peak device memory {peak / 2**20:.1f} MiB; launches forward {fwd}, "
+        f"backward {bwd}")
+    log(f"    under torch.profiler: {len(events)} device ops, device busy "
+        f"{busy_ms:.1f} ms = {100 * busy_ms / ms:.1f}% of the unprofiled "
+        f"{ms:.1f} ms (idle {100 * (1 - busy_ms / ms):.0f}%); {kernel} "
+        f"{sum(kern) / 1e3:.3f} ms in {len(kern)} recorded launches, the "
+        f"other device ops {busy_ms - sum(kern) / 1e3:.1f} ms; sorted "
+        f"indexing_backward kernels {len(sorted_bw)}, "
+        f"{sum(sorted_bw) / 1e3:.2f} ms; {_mhz(mhz)} after it")
+    log("    the most device time: " + "; ".join(
+        f"{name[:60]} {t:.1f} ms" for name, t in _top_ops(events)))
+    ok = (bool(torch.isfinite(loss)) and float(loss) > 0
+          and all(bool(torch.isfinite(g).all()) and float(g.abs().sum()) > 0
+                  for g in grads.values())
+          and launches_ok(fwd, bwd))
+    return ok, secs, counts
+
+
+def _summed(counts):
+    """A loss's launches of forward + backward, per kernel."""
+    return {k: v + counts["backward"][k] for k, v in counts["forward"].items()}
+
+
+def _diff_report(label, scene, cam, fields, cfg, key):
+    """One main-path run of the fast path on the card: ``_profile_loss`` of
+    ``render_loss_fast`` (the trace kernels' device time), and the forward
+    alone for the traced-ray count. Returns (ok, launch counts of the
+    forward and of the backward)."""
+    from tinyraytracing_tpu_torch.diff import SceneParams, apply_params, render_diff
+
+    target = torch.zeros(cam.height, cam.width, 3, device=scene.device)
+    run = lambda counts=None: _loss_and_grads(scene, cam, fields, cfg, key,
+                                              target, counts)
+    ok, secs, counts = _profile_loss(
+        f"{label}, max_depth {cfg.max_depth}, {DIFF_SPP} spp, params "
+        f"{'+'.join(fields)} (launches of the backward: the checkpointed "
+        f"bounces' recompute)", run, "trace_kernel",
+        lambda fwd, bwd: (fwd["trace_closest"] > 0 and fwd["trace_occlusion"] > 0
+                          and bwd["trace_closest"] > 0
+                          and all(c[k] == 0 for c in (fwd, bwd) for k in
+                                  ("trace_near", "bvh_intersect",
+                                   "slot_intersect"))))
     with torch.no_grad():
         s2, c2 = apply_params(scene, cam,
                               SceneParams.init_from(scene, cam, *fields))
@@ -1204,39 +1341,9 @@ def _diff_report(label, scene, cam, fields, cfg, key):
         _, rays = render_diff(s2, c2, key, cfg, DIFF_SPP, return_rays=True)
         rays = float(rays)
         fwd_secs = time.perf_counter() - t0
-    events, mhz = _device_events(run)
-    n_dev = len(events)
-    busy_ms = sum(e.device_time_total for e in events) / 1e3
-    by_name = {}
-    for e in events:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3
-    kern = [e.device_time_total for e in events if "trace_kernel" in e.name]
-    kern_ms, n_kern = sum(kern) / 1e3, len(kern)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
-    ms = 1e3 * secs
-    log(f"  {label}, max_depth {cfg.max_depth}, {DIFF_SPP} spp, params "
-        f"{'+'.join(fields)}: forward + backward {secs:.3f} s for {rays:.0f} "
-        f"traced rays = {rays / secs:.4g} rays/s (forward alone {fwd_secs:.3f}"
-        f" s, {rays / fwd_secs:.4g} rays/s); loss {float(loss):.6g}; peak "
-        f"device memory {peak / 2**20:.1f} MiB")
-    log(f"    launches: forward {counts['forward']}, backward (the "
-        f"checkpointed bounces' recompute) {counts['backward']}")
-    log(f"    the same forward + backward under torch.profiler: {n_dev} "
-        f"device ops, device busy {busy_ms:.1f} ms = {100 * busy_ms / ms:.1f}% "
-        f"of the unprofiled {ms:.1f} ms (idle {100 * (1 - busy_ms / ms):.0f}%)"
-        f"; in {n_kern} recorded trace-kernel launches {kern_ms:.2f} ms = "
-        f"{100 * kern_ms / ms:.2f}%, the other device ops {busy_ms - kern_ms:.1f}"
-        f" ms; {_mhz(mhz)} after it")
-    log("    the most device time: " + "; ".join(
-        f"{name[:60]} {t:.1f} ms" for name, t in top))
-    fwd, bwd = counts["forward"], counts["backward"]
-    ok = (bool(torch.isfinite(loss)) and float(loss) > 0
-          and all(bool(torch.isfinite(g).all()) and float(g.abs().sum()) > 0
-                  for g in grads.values())
-          and fwd["trace_closest"] > 0 and fwd["trace_occlusion"] > 0
-          and bwd["trace_closest"] > 0
-          and all(c[k] == 0 for c in (fwd, bwd) for k in
-                  ("trace_near", "bvh_intersect", "slot_intersect")))
+    log(f"    {rays:.0f} traced rays: {rays / secs:.4g} rays/s forward + "
+        f"backward; the forward alone {fwd_secs:.3f} s, "
+        f"{rays / fwd_secs:.4g} rays/s")
     return ok, counts
 
 
@@ -1339,8 +1446,292 @@ def phase_diff(dev):
         + f" (bound {DIFF_GRAD_RTOL:g})")
     ok &= loss_rel <= DIFF_LOSS_RTOL and all(
         e <= DIFF_GRAD_RTOL for e in errs.values())
+    ok_s, counts["scan"] = _scan_loss_report(dev, key)
+    ok &= ok_s
     log(f"phase 6: {'ok' if ok else 'FAILED'}")
     return ok, counts
+
+
+SCAN_LOSS_FIELDS = ("kd", "radiance")
+
+
+def _scan_loss_setup(dev):
+    """Phase 6's scan ``render_loss`` case: (scene, cam, cfg, target) of
+    cornell 512x512 under ``intersector="bvh_pallas"`` (kernel 4) at phase
+    6's depth, the loss taken in SCAN_LOSS_FIELDS."""
+    from tinyraytracing_tpu_torch.config import RenderConfig
+    from tinyraytracing_tpu_torch.models.procedural import cornell_box
+    from tinyraytracing_tpu_torch.ops.bvh import attach_bvh
+
+    cfg = RenderConfig(intersector="bvh_pallas", max_depth=DIFF_DEPTH)
+    scene, cam = cornell_box(512, 512, device=dev)
+    target = torch.zeros(cam.height, cam.width, 3, device=dev)
+    return attach_bvh(scene, cfg), cam, cfg, target
+
+
+def _scan_loss_report(dev, key):
+    """``_profile_loss`` of ``render_loss`` over the scan renderer
+    (``_scan_loss_setup``): kernel 4 launches spp x chunks x bounces x 2
+    times in the forward and none in the backward; the log shows whether a
+    sorted ``indexing_backward`` kernel remains. Returns (ok, launches of
+    forward + backward)."""
+    from tinyraytracing_tpu_torch.diff import render_loss
+
+    scene, cam, cfg, target = _scan_loss_setup(dev)
+    run = lambda counts=None: _loss_and_grads(scene, cam, SCAN_LOSS_FIELDS, cfg,
+                                              key, target, counts, render_loss)
+    want = DIFF_SPP * -(-cam.width * cam.height // cfg.ray_chunk) * cfg.max_depth * 2
+    ok, _, counts = _profile_loss(
+        f"render_loss (scan, bvh_pallas) cornell 512x512, max_depth "
+        f"{cfg.max_depth}, {DIFF_SPP} spp, params {'+'.join(SCAN_LOSS_FIELDS)} "
+        f"(kernel 4 expected {want} + 0)", run, "bvh_intersect",
+        lambda fwd, bwd: (fwd["bvh_intersect"] == want
+                          and all(v == 0 for k, v in fwd.items()
+                                  if k != "bvh_intersect")
+                          and all(v == 0 for v in bwd.values())))
+    return ok, _summed(counts)
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the edge-sampled boundary terms (diff/edge.py)
+# ---------------------------------------------------------------------------
+
+# card against CPU on the FD scenes, stated before the first card run:
+# the same keys sample the same edges and points, and kernel 5 is bitwise
+# its plain version, so only float-add order (sums, the cotangent
+# scatters' atomics) and the library solve of the projection differ
+EDGE_LOSS_RTOL, EDGE_GRAD_RTOL = 1e-5, 1e-3
+EDGE_SAMPLES = (0, 8192, 65536)
+# the call whose kernel-4 dispatches are held to the plain version: the
+# primary term's first trace (closest hit, shadow) and the shadow term's
+# three dispatches (camera rays, f on both sides)
+EDGE_CHECKED, EDGE_PICKS = 8192, (0, 1, 12, 13, 14)
+
+
+def _edge_launches(cfg, edge_samples, shadow_edge_samples):
+    """Intersect launches of the edge terms in one ``render_loss_fast``:
+    the primary term traces G on both sides of every sample
+    (``wavefront.trace``: per bounce one closest-hit and one shadow
+    dispatch), the shadow term its camera rays and f on both sides."""
+    return ((2 * cfg.max_depth * 2 if edge_samples else 0)
+            + (3 if shadow_edge_samples else 0))
+
+
+def phase_edge(dev, reports):
+    """Phase 7: (1) the FD scenes of tests/test_diff_edge.py
+    (tests/torch_edge_scenes.py) at 48x48 with ``intersector="pallas"``
+    on the card (kernel 5) and on the CPU (its plain version): the card's
+    interior plus edge gradient against the central difference at the JAX
+    tests' tolerances, and against the CPU's gradient and loss. (2) Full
+    size: ``render_loss_fast`` on cornell 512x512 (phase 6's shape) in
+    kd + vertex_offset with edge_samples = shadow_edge_samples at 0, 8,192
+    and 65,536 (kernel 4), and kernel 4 held bitwise to its plain version
+    on the 8,192-sample call's own dispatches. Returns (ok, {"edge":
+    launches of the 65,536 call, "edge_fd": of the three FD edge calls on
+    the card})."""
+    from tinyraytracing_tpu_torch.config import RenderConfig
+    from tinyraytracing_tpu_torch.diff.edge import build_edge_aux
+    from tinyraytracing_tpu_torch.models.procedural import cornell_box
+    from tinyraytracing_tpu_torch.ops.bvh import attach_bvh
+    from tinyraytracing_tpu_torch.ops.rng import master_key_data
+
+    fd = _tests_module("torch_edge_scenes")
+    log("phase 7: the edge-sampled boundary terms (render_loss_fast with "
+        "edge_samples / shadow_edge_samples)")
+    ok, fd_launches = True, {}
+    for name, case in fd.CASES.items():
+        out = {}
+        for where, device in (("cuda", dev), ("cpu", "cpu")):
+            seen = {}
+
+            def wrap(fn):
+                res, seen["launches"] = _counted(fn)
+                return res
+
+            t0 = time.perf_counter()
+            r = fd.fd_check(name, device, "pallas", wrap=wrap)
+            out[where] = (r, seen["launches"], time.perf_counter() - t0)
+        (rc, lc, tc), (rp, _, tp) = out["cuda"], out["cpu"]
+        gerr = float((rc["grad"].cpu() - rp["grad"]).norm() / rp["grad"].norm())
+        lerr = abs(rc["loss"] - rp["loss"]) / abs(rp["loss"])
+        want = _edge_launches(fd.config(name), case.edge_samples,
+                              case.shadow_edge_samples)
+        rel = abs(rc["g_full"] - rc["fd"]) / abs(rc["fd"])
+        log(f"  {name} 48x48, {case.spp} spp, edge {case.edge_samples} / "
+            f"shadow {case.shadow_edge_samples} samples: FD {rc['fd']:.6g} "
+            f"(step {case.eps}); card interior {rc['g_int']:.3g}, interior + "
+            f"edge {rc['g_full']:.6g} ({rel:.3g} from FD, bound {case.rel}); "
+            f"CPU interior + edge {rp['g_full']:.6g}; card vs CPU loss "
+            f"{lerr:.3g} (bound {EDGE_LOSS_RTOL:g}), gradient distance / norm "
+            f"{gerr:.3g} (bound {EDGE_GRAD_RTOL:g}); launches in the edge call "
+            f"{lc} (kernel 5 expected {want}); cuda {tc:.2f} s, cpu {tp:.2f} s")
+        ok &= (rc["ok"] and lerr <= EDGE_LOSS_RTOL and gerr <= EDGE_GRAD_RTOL
+               and lc["slot_intersect"] == want and lc["bvh_intersect"] == 0)
+        for k, v in lc.items():
+            fd_launches[k] = fd_launches.get(k, 0) + v
+
+    cfg, key = RenderConfig(max_depth=DIFF_DEPTH), master_key_data(0)
+    scene, cam = cornell_box(512, 512, device=dev)
+    scene = attach_bvh(scene, cfg)
+    t0 = time.perf_counter()
+    aux = build_edge_aux(scene)
+    log(f"  cornell 512x512: build_edge_aux {time.perf_counter() - t0:.3f} s "
+        f"({aux['ends'].shape[0]} edges)")
+    target = torch.zeros(cam.height, cam.width, 3, device=dev)
+    fields = ("kd", "vertex_offset")
+    edge_launches = {}
+    for n in EDGE_SAMPLES:
+        kw = dict(edge_samples=n, shadow_edge_samples=n, edge_aux=aux)
+        run = lambda counts=None: _loss_and_grads(scene, cam, fields, cfg, key,
+                                                  target, counts, **kw)
+        want = _edge_launches(cfg, n, n)
+        if n == EDGE_CHECKED:
+            # one untimed run whose kernel-4 dispatches are kept and checked
+            with _captured_rays("bvh", EDGE_PICKS) as kept:
+                run()
+            ok &= _main_path_rays_ok(
+                f"cornell leaf 8, the edge terms' kernel-4 dispatches at {n} "
+                f"samples", scene, "bvh", kept, EDGE_PICKS, cfg, reports,
+                "phase 7")
+            del kept
+        ok_n, _, counts = _profile_loss(
+            f"cornell 512x512, max_depth {cfg.max_depth}, {DIFF_SPP} spp, "
+            f"kd+vertex_offset, edge_samples = shadow_edge_samples = {n} "
+            f"(kernel 4 expected {want} + 0)", run, "bvh_intersect",
+            lambda fwd, bwd: (fwd["bvh_intersect"] == want
+                              and bwd["bvh_intersect"] == 0
+                              and fwd["slot_intersect"] == 0
+                              and bwd["slot_intersect"] == 0
+                              and fwd["trace_closest"] > 0))
+        ok &= ok_n
+        if n == EDGE_SAMPLES[-1]:
+            edge_launches = _summed(counts)
+    log(f"phase 7: {'ok' if ok else 'FAILED'}")
+    return ok, {"edge": edge_launches, "edge_fd": fd_launches}
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the regeneration oracles (integrator/regen.py)
+# ---------------------------------------------------------------------------
+
+def _oracle_checks(label, fn, scene, cam, cfg, cpu_cfg):
+    """The oracle ``fn`` against the port's scan render of the same scene
+    on the card at 64x64, 16 spp (the JAX tests' criteria: means within
+    10%, correlation > 0.9), and against itself on the CPU at 64x64, 2 spp
+    with ``cpu_cfg`` on both devices (the kernel on the card, its plain
+    version on the CPU; phases 4/4b/4c's bounds)."""
+    import dataclasses
+
+    import numpy as np
+
+    from tinyraytracing_tpu_torch.ops.rng import master_key_data
+    from tinyraytracing_tpu_torch.render import render
+
+    cam64 = dataclasses.replace(cam, width=64, height=64)
+    key = master_key_data(3)
+    t0 = time.perf_counter()
+    a = render(scene, cam64, key, cfg, 16).cpu().numpy()
+    b = fn(scene, cam64, key, cfg, 16)[0].cpu().numpy()
+    mean_rel = abs(a.mean() - b.mean()) / a.mean()
+    corr = float(np.corrcoef(a.ravel(), b.ravel())[0, 1])
+    log(f"  {label} vs the scan render, 64x64 @ 16 spp on the card: means "
+        f"{b.mean():.6g} vs {a.mean():.6g} ({mean_rel:.3g} relative, bound "
+        f"0.1), correlation {corr:.4f} (bound 0.9); "
+        f"{time.perf_counter() - t0:.2f} s")
+    ok = bool(np.isfinite(b).all()) and mean_rel < 0.1 and corr > 0.9
+    imgs, secs = {}, {}
+    for where, s in (("cuda", scene), ("cpu", scene.to("cpu"))):
+        t0 = time.perf_counter()
+        imgs[where] = fn(s, cam64, key, cpu_cfg, 2)[0].cpu()
+        secs[where] = time.perf_counter() - t0
+    return ok & _compare_images(f"  {label} 64x64 @ 2 spp, "
+                                f"{cpu_cfg.intersector}, card vs CPU",
+                                imgs, secs, 64)
+
+
+# the oracles' dispatches held to the plain version: the first iteration's
+# closest hit (camera rays on every lane) and shadow test, and the 21st
+# iteration's (fresh camera rays among bounces)
+ORACLE_PICKS = (0, 1, 40, 41)
+
+
+def _oracle_report(label, fn, kname, scene, cfg, reports):
+    """One main-path run of an oracle (``fn(stats)``): first one untimed run
+    that warms the allocator and the scene's kernel records and keeps the
+    kernel's ORACLE_PICKS dispatches, which go through the kernel and its
+    plain version; then one run timed alone with its launches counted,
+    then one under torch.profiler. Returns (ok, launches)."""
+    kind = "bvh" if kname == "bvh_intersect" else "slot"
+    with _captured_rays(kind, ORACLE_PICKS) as seen:
+        fn({})
+    ok = _main_path_rays_ok(f"{label.split(',')[0]}'s dispatches", scene,
+                            kind, seen, ORACLE_PICKS, cfg, reports, "phase 8")
+    del seen                               # out of the timed run's peak
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stats = {}
+    t0 = time.perf_counter()
+    (img, rays), counts = _counted(lambda: fn(stats))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    n_dev, busy_ms, kern_ms, n_kern, mhz = _profiled(lambda: fn({}), kname)
+    ms, it, exact = 1e3 * secs, stats["iterations"], stats["rays"]
+    log(f"  {label}: {secs:.3f} s (after one warm run), {it} iterations, traced "
+        f"rays {float(rays):.0f} (float32) / {exact} (exact), "
+        f"{exact / secs:.4g} rays/s; peak device memory {peak / 2**20:.1f} "
+        f"MiB; image mean {float(img.mean()):.6g}")
+    log(f"    launches {counts} ({kname} expected 2 per iteration: {2 * it}); "
+        f"under torch.profiler {n_dev} device ops ({n_dev / max(it, 1):.0f} per "
+        f"iteration), {kname} {kern_ms:.2f} ms in {n_kern} recorded launches = "
+        f"{100 * kern_ms / ms:.2f}% of the unprofiled run, device busy "
+        f"{busy_ms:.1f} ms (idle {100 * (1 - busy_ms / ms):.0f}%); "
+        f"{_mhz(mhz)} after it")
+    ok &= (bool(torch.isfinite(img).all()) and float(img.mean()) > 0
+           and counts[kname] == 2 * it
+           and all(v == 0 for k, v in counts.items() if k != kname)
+           and abs(float(rays) - exact) <= 1e-6 * exact * it)
+    return ok, counts[kname]
+
+
+def phase_oracles(dev, reports):
+    """Phase 8: ``render_regen`` on grid:100000 (leaf 8, the CLI's tree) at
+    1024x1024, 1 spp, 131,072 lanes with intersector "auto" (kernel 4), and
+    ``render_persistent`` on cornell 512x512, 4 spp, 262,144 lanes with
+    "pallas" (kernel 5); each kernel held bitwise to its plain version on
+    the oracle's own dispatches, and each oracle held to the scan render
+    statistically and to itself on the CPU. Returns (ok, {kernel:
+    launches})."""
+    from tinyraytracing_tpu_torch.config import RenderConfig
+    from tinyraytracing_tpu_torch.integrator.regen import (
+        render_persistent, render_regen,
+    )
+    from tinyraytracing_tpu_torch.models.procedural import cornell_box, quad_grid
+    from tinyraytracing_tpu_torch.ops.bvh import attach_bvh
+    from tinyraytracing_tpu_torch.ops.rng import master_key_data
+
+    key = master_key_data(0)
+    log("phase 8: the regeneration oracles")
+    cfg = RenderConfig()
+    grid, gcam = quad_grid(100_000, 1024, 1024, device=dev)
+    grid = attach_bvh(grid, cfg)
+    ok, n4 = _oracle_report(
+        "render_regen grid:100000 1024x1024, 1 spp, 131,072 lanes, auto",
+        lambda st: render_regen(grid, gcam, key, cfg, 1, lanes=131072, stats=st),
+        "bvh_intersect", grid, cfg, reports)
+    ok &= _oracle_checks("render_regen grid:100000", render_regen, grid, gcam,
+                         cfg, cfg.replace(intersector="bvh_pallas"))
+    pcfg = RenderConfig(intersector="pallas")
+    cornell, ccam = cornell_box(512, 512, device=dev)
+    ok_p, n5 = _oracle_report(
+        "render_persistent cornell 512x512, 4 spp, 262,144 lanes, pallas",
+        lambda st: render_persistent(cornell, ccam, key, pcfg, 4, lanes=262144,
+                                     stats=st),
+        "slot_intersect", cornell, pcfg, reports)
+    ok &= ok_p and _oracle_checks("render_persistent cornell",
+                                  render_persistent, cornell, ccam, pcfg, pcfg)
+    log(f"phase 8: {'ok' if ok else 'FAILED'}")
+    return ok, {"bvh_intersect": n4, "slot_intersect": n5}
 
 
 # ---------------------------------------------------------------------------
@@ -1358,11 +1749,13 @@ def kernel_times(tree):
     torch.sum) and of 16384; the packet-BVH kernel on phase 2b's three
     kinds of rays on the same scenes; and the slot kernel on phase 2b's
     three kinds of rays on cornell and grid6000, with an empty kernel on
-    its grid as the floor under its time. Prints one JSON object: per
-    case [device ms, host-inclusive ms, digest of the outputs, SM clock
-    MHz after the set] (no digest for torch.sum, the empty kernel and the
-    packets of 16384, whose order of adds the packet-sum repair
-    changed)."""
+    its grid as the floor under its time; and the scan ``render_loss``
+    forward + backward of phase 6 (``_loss_case``). Prints one JSON
+    object: per case [device ms, host-inclusive ms, digest of the outputs,
+    SM clock MHz after the set] (no digest for torch.sum, the empty
+    kernel, the packets of 16384, whose order of adds the packet-sum
+    repair changed, and the loss, whose cotangents add in no fixed
+    order)."""
     import hashlib
 
     sys.path.insert(0, os.path.abspath(tree))
@@ -1426,8 +1819,26 @@ def kernel_times(tree):
     n = R // 2048
     res["torch.sum, packets of 2048"] = case(
         lambda: rays[3:6].reshape(3, n, 2048).sum(dim=2), None, False)
+    res["render_loss scan bvh_pallas cornell 512x512, kd+radiance, "
+        "forward + backward"] = _loss_case()
     print(json.dumps(res), flush=True)
     return 0
+
+
+def _loss_case():
+    """[device ms, host-inclusive ms, "", SM MHz] of phase 6's scan
+    ``render_loss`` forward + backward (``_scan_loss_setup``): the device
+    time is the sum of all its kernels under torch.profiler (after the
+    host timing), the host-inclusive time CUDA events around 5 calls."""
+    from tinyraytracing_tpu_torch.diff import render_loss
+    from tinyraytracing_tpu_torch.ops.rng import master_key_data
+
+    scene, cam, cfg, target = _scan_loss_setup("cuda")
+    fn = lambda: _loss_and_grads(scene, cam, SCAN_LOSS_FIELDS, cfg,
+                                 master_key_data(0), target, loss_fn=render_loss)
+    host = _host_ms(fn, 5)
+    events, mhz = _device_events(fn)
+    return [sum(e.device_time_total for e in events) / 1e3, host, "", mhz]
 
 
 def _walk_launch(lib, rec, rays, cfg, attrs, occl, tile, md, refill):
@@ -1777,6 +2188,7 @@ def main(argv=None) -> int:
         return profile_walk(args.out)
     from tinyraytracing_tpu_torch.ops import kernels
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1814,13 +2226,21 @@ def main(argv=None) -> int:
     ok4b = phase_scan_vs_scan(dev)
     ok4c = phase_persistent_vs_persistent(dev)
     ok6, diff_launches = phase_diff(dev)
+    t0 = time.perf_counter()
+    ok7, edge_launches = phase_edge(dev, reports)
+    diff_launches.update(edge_launches)
+    t7 = time.perf_counter()
+    ok8, oracle_launches = phase_oracles(dev, reports)
+    log(f"phases 7 and 8 took {t7 - t0:.1f} s and "
+        f"{time.perf_counter() - t7:.1f} s")
+    for k, n in oracle_launches.items():
+        launches[k] = launches.get(k, 0) + n
 
     # no single PyTorch call computes a BVH walk or brute-force closest
     # hit; the packet sums have one (a sum over each packet)
     kern = [dict(name=k, route="cuda", source=SOURCES[k], replaces=REPLACES[k],
                  launches=launches.get(k, 0),
-                 diff_launches={w: diff_launches[w][k]
-                                for w in ("forward", "backward")},
+                 diff_launches={w: c.get(k, 0) for w, c in diff_launches.items()},
                  max_abs_err=r["max_abs_err"],
                  ms=r.get("ms"), device_ms=r.get("device_ms"),
                  host_ms=r.get("host_ms"), plain_ms=r.get("plain_ms"),
@@ -1833,9 +2253,11 @@ def main(argv=None) -> int:
               "cli scan render": ok3b, "cli persistent render": ok3c,
               "near queue render": ok3d, "render vs render": ok4,
               "scan vs scan": ok4b, "persistent vs persistent": ok4c,
-              "chunked resume": ok5, "diff": ok6}
+              "chunked resume": ok5, "diff": ok6, "edge terms": ok7,
+              "oracles": ok8}
     log("phases: " + ", ".join(f"{k} {'ok' if v else 'FAILED'}"
-                               for k, v in phases.items()))
+                               for k, v in phases.items())
+        + f"; {time.perf_counter() - t_start:.0f} s in all")
     if not all(phases.values()):
         return 1
     print(json.dumps({"ok": True, "device": {

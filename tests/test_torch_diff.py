@@ -551,15 +551,6 @@ def test_geometry_grads_through_kernel_backends_raise(backend):
             assert torch.isfinite(tf(tx0))
 
 
-def test_edge_terms_raise_until_ported(cornell_fast):
-    scene, cam = cornell_fast
-    p = SceneParams(kd=scene.kd)
-    for kw in (dict(edge_samples=4), dict(shadow_edge_samples=4)):
-        with pytest.raises(NotImplementedError, match="edge"):
-            render_loss_fast(p, scene, cam, master_key_data(0),
-                             torch.zeros(32, 32, 3), RenderConfig(), 1, **kw)
-
-
 def test_fast_path_under_the_near_first_walk(cornell_fast):
     """Under walk_order="near" the forward traces with the near-first walk
     (kernel 3 on the card): the same hits, so the same loss and

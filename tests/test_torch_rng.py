@@ -101,3 +101,17 @@ def test_uniform_equals_jax(seed, shape):
     got = trng.uniform(tkey, shape)
     assert got.dtype == torch.float32 and tuple(got.shape) == shape
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_fold_in_planes_equals_jax_vmap():
+    """The regeneration oracles' camera jitter: ``fold_in(key, t)`` over a
+    plane of path ids, as ``jax.vmap`` computes it."""
+    rng = np.random.default_rng(12)
+    words = _u32(rng, 2)
+    data = rng.integers(0, 2**31, 4096, dtype=np.int64)
+    key = jnp.asarray(words)
+    want = np.asarray(jax.random.key_data(jax.vmap(
+        lambda t: jax.random.fold_in(key, t))(jnp.asarray(data, jnp.int32))))
+    w0, w1 = trng.fold_in_planes(tuple(int(w) for w in words), torch.from_numpy(data))
+    np.testing.assert_array_equal(w0.numpy(), want[:, 0].astype(np.int64))
+    np.testing.assert_array_equal(w1.numpy(), want[:, 1].astype(np.int64))

@@ -12,7 +12,9 @@ tests/test_torch_textures.py from ``<dir>`` with each package's
 ``load_scene`` and renders ``TEXTURED_CASES``; one written ``diff:<scene>``
 saves the fast differentiable path's image (``render_diff``) and the
 gradients of ``render_loss_fast`` and of the scan renderer's
-``render_loss`` in ``DIFF_FIELDS`` (tests/test_torch_diff.py).
+``render_loss`` in ``DIFF_FIELDS`` (tests/test_torch_diff.py); one written
+``regen:<scene>`` renders the regeneration oracles' ``REGEN_CASES``
+(tests/test_torch_regen.py).
 
 Three things make the JAX package's CPU render differ from the port's in
 the last ulp, and each of them alone flips a few shadow and bounce
@@ -270,6 +272,37 @@ def diff_arrays(name, images):
             images[f"diff-{name}-{kind}-grad-{f}-port"] = getattr(p, f).grad.numpy()
 
 
+# the regeneration oracles (integrator/regen.py): (renderer, lanes) with
+# the "mxu" intersector at depth 4, as the JAX package's tests run them;
+# 300 lanes do not divide the 512 paths, 64 and 100 lanes take 4 and 3
+# epochs of the 256 pixels (the last one padded)
+REGEN_CASES = {"regen": ("regen", 512), "regen_ragged": ("regen", 300),
+               "persistent": ("persistent", 256),
+               "persistent_epochs": ("persistent", 64),
+               "persistent_ragged": ("persistent", 100)}
+REGEN_CONFIG = dict(intersector="mxu", max_depth=4, tri_chunk=64)
+
+
+def regen_images(name, images):
+    """The regeneration oracles' cases on scene ``name``, both packages:
+    images and traced-ray counts."""
+    from tinyraytracing_tpu.integrator import regen as jregen
+    from tinyraytracing_tpu_torch.integrator import regen
+
+    js, jcam, ts, tcam = scenes(name)
+    for case, (kind, lanes) in REGEN_CASES.items():
+        jfn = getattr(jregen, f"render_{kind}_stats_jit")
+        tfn = getattr(regen, f"render_{kind}_stats")
+        jimg, jrays = jfn(js, jcam, jax.random.PRNGKey(SEED),
+                          JConfig(**REGEN_CONFIG), SPP, lanes=lanes)
+        img, rays = tfn(ts, tcam, master_key_data(SEED),
+                        RenderConfig(**REGEN_CONFIG), SPP, lanes=lanes)
+        images[f"regen-{name}-{case}-jax"] = np.asarray(jimg)
+        images[f"regen-{name}-{case}-port"] = img.numpy()
+        images[f"regen-{name}-{case}-rays-jax"] = np.float32(jrays)
+        images[f"regen-{name}-{case}-rays-port"] = np.float32(rays)
+
+
 def run_processes(out_dir, names):
     """Render ``names`` (one process each, side by side, with FMA
     contraction off) into ``out_dir``; returns all their images."""
@@ -310,6 +343,8 @@ def main(out, names):
             textured_images(name[9:], images)
         elif name.startswith("diff:"):
             diff_arrays(name[5:], images)
+        elif name.startswith("regen:"):
+            regen_images(name[6:], images)
     if not names:
         queue = list(dict.fromkeys(n for n, _ in CASES))
     for name in queue:

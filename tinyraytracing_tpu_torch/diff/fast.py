@@ -49,7 +49,9 @@ from tinyraytracing_tpu_torch.integrator.fused import (
 from tinyraytracing_tpu_torch.models.camera import camera_basis
 from tinyraytracing_tpu_torch.ops import vec
 from tinyraytracing_tpu_torch.ops.lookup import gather_rows
-from tinyraytracing_tpu_torch.ops.rng import bits_to_uniform, bounce_uniforms, path_keys
+from tinyraytracing_tpu_torch.ops.rng import (
+    bits_to_uniform, bounce_uniforms, fold_in, path_keys,
+)
 from tinyraytracing_tpu_torch.ops.trace import (
     _INF, fused_trace_planes, occlusion_trace_segmented,
 )
@@ -299,20 +301,39 @@ def render_diff(scene, cam, key, config: RenderConfig, spp: int,
 
 def render_loss_fast(params, scene, cam, key, target, config: RenderConfig,
                      spp: int, edge_samples: int = 0,
-                     shadow_edge_samples: int = 0):
+                     shadow_edge_samples: int = 0, edge_aux=None,
+                     edge_delta: float = 0.1, shadow_light: int = 0):
     """Mean-squared pixel loss through the fast differentiable path:
     ``apply_params`` (BVH refit under vertex offsets) and ``render_diff``
     (the trace kernels under path replay); the fast-path counterpart of
-    ``diff.inverse.render_loss``. The JAX package's edge-sampled boundary
-    terms (``edge_samples``, ``shadow_edge_samples``) need ``diff/edge.py``,
-    which is not ported yet (ROADMAP, modules to port: ``diff/`` layer
-    (c)), and raise."""
+    ``diff.inverse.render_loss``.
+
+    Edge-sampled boundary terms (``diff/edge.py``): with ``edge_samples``
+    > 0 the gradient also carries the primary-visibility boundary term
+    (view-dependent silhouettes, closed meshes included), with
+    ``shadow_edge_samples`` > 0 the shadow-silhouette term for
+    camera-visible shading points under planar light ``shadow_light``.
+    Both are added as ``x - x.detach()``, so the loss value is unchanged.
+    ``edge_aux``: ``diff.edge.build_edge_aux(scene)``, built here when
+    None (build it once per scene). The terms' integrands trace through
+    ``config.intersector`` (on the card the packet-BVH or slot kernel)."""
+    from tinyraytracing_tpu_torch.diff import edge
     from tinyraytracing_tpu_torch.diff.inverse import apply_params
 
-    if edge_samples or shadow_edge_samples:
-        raise NotImplementedError(
-            "edge-sampled boundary terms need diff/edge.py, not ported yet "
-            "(ROADMAP.md, modules to port: diff/ layer (c))")
     s2, c2 = apply_params(scene, cam, params)
     img = render_diff(s2, c2, key, config, spp)
-    return torch.mean((img - target) ** 2)
+    loss = torch.mean((img - target) ** 2)
+    if edge_samples or shadow_edge_samples:
+        if edge_aux is None:
+            edge_aux = edge.build_edge_aux(scene)
+        if edge_samples:
+            sur = edge.primary_edge_surrogate(
+                s2, c2, config, target, fold_in(key, 101), edge_aux,
+                edge_samples, edge_delta, spp=1)
+            loss = loss + (sur - sur.detach())
+        if shadow_edge_samples:
+            sur2 = edge.shadow_edge_surrogate(
+                s2, c2, config, target, img.detach(), fold_in(key, 102),
+                edge_aux, shadow_edge_samples, light=shadow_light)
+            loss = loss + (sur2 - sur2.detach())
+    return loss

@@ -10,12 +10,15 @@ Stream layout (as in the JAX package):
 - draw pair = TF(path_key, (bounce, draw_pair_index))
   giving 2 uniforms per block; uniform = (bits >> 8) * 2^-24 in [0, 1).
 
-``split``, ``fold_in`` and ``uniform`` reproduce ``jax.random``'s bits for
-a raw (2,) threefry key under ``jax_threefry_partitionable`` (the default
-since JAX 0.5): ``fold_in(k, d) = TF(k, (0, d))``, ``split(k)[j] =
-TF(k, (0, j))``, and flat element i of ``uniform(k, shape)`` is
-``(y0 ^ y1) >> 9`` scaled by 2^-23, with (y0, y1) = TF(k, (0, i)). Keys
-are pairs of Python ints, derived on the host: they cost no device launch.
+``split``, ``fold_in``, ``uniform`` and ``randint`` reproduce
+``jax.random``'s bits for a raw (2,) threefry key under
+``jax_threefry_partitionable`` (the default since JAX 0.5):
+``fold_in(k, d) = TF(k, (0, d))``, ``split(k)[j] = TF(k, (0, j))``, and
+flat element i of the 32-bit words of ``k`` is ``y0 ^ y1`` with
+(y0, y1) = TF(k, (0, i)); ``uniform`` scales ``(y0 ^ y1) >> 9`` by 2^-23.
+Keys are pairs of Python ints, derived on the host: they cost no device
+launch. ``fold_in_planes`` folds a plane of data words into one key on
+the device (``jax.vmap(lambda t: fold_in(key, t))``).
 """
 
 from __future__ import annotations
@@ -75,15 +78,42 @@ def split(key, num: int = 2) -> list[tuple[int, int]]:
     return [fold_in(key, j) for j in range(num)]
 
 
-def uniform(key, shape, device=None) -> torch.Tensor:
-    """``jax.random.uniform(key, shape, float32)`` in [0, 1) on ``device``."""
+def fold_in_planes(key, data):
+    """``fold_in(key, t)`` for every word t of the integer tensor ``data``
+    (taken modulo 2^32): the two key-word planes, int64."""
+    return threefry2x32(int(key[0]), int(key[1]), 0, data.to(torch.int64) & _M)
+
+
+def _bits(key, shape, device):
+    """``jax.random.bits(key, shape, uint32)`` as int64 words."""
     n = 1
     for s in shape:
         n *= int(s)
     i = torch.arange(n, dtype=torch.int64, device=device)
     y0, y1 = threefry2x32(int(key[0]), int(key[1]), 0, i)
-    u = ((y0 ^ y1) >> 9).to(torch.float32) * (1.0 / (1 << 23))
-    return u.reshape(tuple(shape))
+    return (y0 ^ y1).reshape(tuple(shape))
+
+
+def uniform(key, shape, device=None) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32)`` in [0, 1) on ``device``."""
+    return (_bits(key, shape, device) >> 9).to(torch.float32) * (1.0 / (1 << 23))
+
+
+def randint(key, shape, minval: int, maxval: int, device=None) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval)`` for int32 bounds
+    (``jax/_src/random.py::_randint``), as int64: the words of the two
+    halves of ``split(key)`` reduced into the span as uint32 arithmetic
+    that wraps (emulated in int64, masked to 32 bits after every product
+    and sum). An empty range gives ``minval``."""
+    lo32, hi32 = -(1 << 31), (1 << 31) - 1
+    if not (lo32 <= minval <= hi32 and lo32 <= maxval <= hi32):
+        raise ValueError(f"randint bounds must be int32, got {minval}, {maxval}")
+    span = max(maxval - minval, 1)
+    k1, k2 = split(key)
+    hi, lo = _bits(k1, shape, device), _bits(k2, shape, device)
+    mult = ((((1 << 16) % span) ** 2) & _M) % span
+    off = (((hi % span) * mult) & _M) + lo % span
+    return minval + (off & _M) % span
 
 
 def path_keys(key_data, path_id):
