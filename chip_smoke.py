@@ -22,10 +22,17 @@ the same call without them. Phase 8 runs the regeneration oracles
 each held to the scan render statistically and to itself on the CPU.
 Phases 7 and 8 also hold kernels 4 and 5 bitwise to their plain versions
 on dispatches copied from their own main-path calls (8,192, 131,072 and
-262,144 rays). The CLI's tree must come from the native builder
-(``native/``, built with g++ in phase 1). The slot kernel is also checked
-on grid6000 and on the tie scene of the CPU tests
-(``tests/torch_slot_emulate.py``). Run from the repository root:
+262,144 rays). Phase 9 runs the multi-rank renderers (``parallel/``):
+four gloo ranks, processes started with spawn on the one card, render
+phase 3c's and phase 3's calls through ``render_fused_sharded`` (bitwise
+phase 3c's image) and ``render_queue_sharded_chunked`` (phase 3's ray
+count within float32 rounding) at 1, 2 and 4 ranks, preempt and resume
+the sharded queue, run phase 6's loss through ``render_loss_fast_sharded``
+and grid:100000 through ``render_sharded`` (the packet-BVH kernel); then
+one NCCL rank matches its single-process calls. The CLI's tree must come
+from the native builder (``native/``, built with g++ in phase 1). The
+slot kernel is also checked on grid6000 and on the tie scene of the CPU
+tests (``tests/torch_slot_emulate.py``). Run from the repository root:
 
     python3 chip_smoke.py
 
@@ -34,8 +41,8 @@ a result when there is no CUDA device). The last line of standard output
 is {"ok": true, "device": {...}}; the line before it lists the kernels,
 each with its device time per launch (torch.profiler), its
 host-inclusive time (CUDA events around back-to-back calls), its
-launches on its main paths (the oracles' included) and on the
-differentiable paths (forward, the backward's recompute, the scan
+launches on its main paths (the oracles' and the sharded phase's ranks'
+included) and on the differentiable paths (forward, the backward's recompute, the scan
 ``render_loss``, the edge terms at full size and on the FD scenes). Each
 timed
 set runs after ~50 ms of back-to-back launches that raise the card's
@@ -768,10 +775,11 @@ def _empty_launch(R):
 # phase 3: the CLI at full size
 # ---------------------------------------------------------------------------
 
-def phase_cli(dev, out_dir):
+def phase_cli(dev, out_dir, refs):
     """Phase 3: grid:100000 through the CLI with "auto" (the queue, through
     the chunked driver). Only the render call is timed; kernel and busy time
-    come from torch.profiler of the same render run again (_render_report)."""
+    come from torch.profiler of the same render run again (_render_report).
+    Keeps (image, traced rays, seconds) in ``refs["queue"]`` for phase 9."""
     import tinyraytracing_tpu_torch.render as render_mod
     from tinyraytracing_tpu_torch import cli
     from tinyraytracing_tpu_torch.ops import bvh, trace
@@ -817,6 +825,7 @@ def phase_cli(dev, out_dir):
         f"builder alone on the same {len(v)} triangles {numpy_s:.3f} s")
     img = _render_report("queue grid:100000", wall, seen, launches, real,
                          ("trace_kernel",))
+    refs["queue"] = (img.cpu(), seen["rays"], seen["seconds"])
     ok = (rc == 0 and all(b[1] == "native" for b in built)
           and launches["trace_closest"] > 0
           and launches["trace_occlusion"] > 0 and launches["trace_near"] == 0
@@ -881,7 +890,7 @@ def _traced_rays(render_args):
     return int(acc["primary"]), int(acc["shadow"])
 
 
-def phase_cli_scan(dev, out_dir, size=1024):
+def phase_cli_scan(dev, out_dir, refs, size=1024):
     """Two scan renders through the CLI, each with every launch count set to
     0 just before and read just after: grid:100000 with "auto" (a BVH is
     attached: the packet-BVH kernel) and cornell with "pallas" (the slot
@@ -892,7 +901,8 @@ def phase_cli_scan(dev, out_dir, size=1024):
     inside it is wrapped. The same render is then run once more, timed the
     same way, and twice untimed: under torch.profiler for its kernel and
     device-busy time, and with the tracer's stats for the traced-ray
-    count."""
+    count. Keeps grid:100000's image mean in ``refs["scan mean"]`` for
+    phase 9."""
     n_chunks = -(-size * size // SCAN_CHUNK)
     expect = n_chunks * 16 * 2
     import tinyraytracing_tpu_torch.render as render_mod
@@ -965,6 +975,8 @@ def phase_cli_scan(dev, out_dir, size=1024):
         ok &= (rc == 0 and counts == want and bool(torch.isfinite(img).all())
                and mean > 0)
         launches[kname] = counts[kname]
+        if scene_arg == "grid:100000":
+            refs["scan mean"] = mean
     return ok, launches
 
 
@@ -1010,10 +1022,11 @@ def _render_report(label, wall, seen, counts, stats_fn, kernels):
     return img
 
 
-def phase_cli_persistent(dev, out_dir):
+def phase_cli_persistent(dev, out_dir, refs):
     """Phase 3c: cornell through the CLI with "auto" (under 512 triangles:
     the persistent renderer) at 1024x1024, 4 spp, 262,144 lanes: 4 epochs
-    of one merged bounce + shadow dispatch per iteration."""
+    of one merged bounce + shadow dispatch per iteration. Keeps (image,
+    traced rays, seconds) in ``refs["fused"]`` for phase 9."""
     import tinyraytracing_tpu_torch.render as render_mod
     from tinyraytracing_tpu_torch import cli
     from tinyraytracing_tpu_torch.integrator.fused import render_fused_stats
@@ -1038,6 +1051,7 @@ def phase_cli_persistent(dev, out_dir):
         f"4 epochs of 262,144 lanes) -> rc {rc}")
     img = _render_report("persistent cornell", wall, seen, counts,
                          render_fused_stats, ("trace_kernel",))
+    refs["fused"] = (img.cpu(), seen["rays"], seen["seconds"])
     ok = (rc == 0 and counts["trace_closest"] > 0 and counts["trace_near"] == 0
           and counts["trace_occlusion"] == 0 and tuple(img.shape) == (1024, 1024, 3)
           and bool(torch.isfinite(img).all()) and float(img.mean()) > 0)
@@ -1735,6 +1749,580 @@ def phase_oracles(dev, reports):
 
 
 # ---------------------------------------------------------------------------
+# phase 9: the multi-rank renderers (parallel/) over torch.distributed
+# ---------------------------------------------------------------------------
+
+P9_WORLD = 4
+P9_TIMEOUT_S = 300          # a set of ranks that runs longer fails the phase
+P9_RANKS = (1, 2, 4)        # the rank counts of the fused and queue sweeps
+P9_SCAN_SPP = 2
+P9_SPP = 4                  # the fused and queue renders' spp (phases 3, 3c)
+
+
+def _p9_spawn(body, world, backend, label):
+    """``body(r, world, out)`` in ``world`` rank processes (spawn start
+    method, a ``file://`` rendezvous in a temporary directory, process
+    group ``backend``, rank r on card r modulo the cards); returns each
+    rank's result in
+    rank order, or None when a rank failed or the set outlasted
+    P9_TIMEOUT_S (the others are then ended)."""
+    import torch.multiprocessing as mp
+    from torch.multiprocessing.spawn import ProcessException
+
+    with tempfile.TemporaryDirectory() as d:
+        ctx = mp.start_processes(
+            _p9_rank, args=(world, backend, f"file://{d}/rendezvous", d, body),
+            nprocs=world, join=False, start_method="spawn")
+        t0 = time.perf_counter()
+        try:
+            while not ctx.join(timeout=5):
+                if time.perf_counter() - t0 > P9_TIMEOUT_S:
+                    log(f"  {label}: the ranks outlasted {P9_TIMEOUT_S} s; "
+                        f"the stages each rank finished: "
+                        f"{_p9_marks(d, world)}")
+                    return None
+        except ProcessException as e:
+            log(f"  {label}: a rank failed: {e}")
+            return None
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        return [torch.load(os.path.join(d, f"rank{r}.pt"), weights_only=False)
+                for r in range(world)]
+
+
+def _p9_marks(d, world):
+    """{rank: the stage lines it wrote to ``d``}."""
+    out = {}
+    for r in range(world):
+        path = os.path.join(d, f"marks{r}.txt")
+        out[r] = open(path).read().split("\n")[:-1] if os.path.exists(path) else []
+    return out
+
+
+def _p9_rank(r, world, backend, init, out, body):
+    """One rank: join the process group, run ``body``, save its result."""
+    import datetime
+
+    import torch.distributed as dist
+
+    torch.cuda.set_device(r % torch.cuda.device_count())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group(backend, init_method=init, world_size=world,
+                            rank=r,
+                            timeout=datetime.timedelta(seconds=P9_TIMEOUT_S))
+    try:
+        res = body(r, world, out)
+    finally:
+        dist.destroy_process_group()
+    torch.save(res, os.path.join(out, f"rank{r}.pt"))
+
+
+def _p9_call(fn, group=None):
+    """(result, seconds, launches of every kernel, peak device MiB) of one
+    call, started together with the other ranks of ``group`` (a barrier)
+    and synchronised before and after."""
+    import torch.distributed as dist
+
+    dist.barrier(group=group)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out, counts = _counted(fn)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return out, secs, counts, torch.cuda.max_memory_allocated() / 2**20
+
+
+def _p9_busy(fn):
+    """Device busy ms and device ops of one more run of ``fn`` under
+    torch.profiler (this rank's CUDA activity), all ranks starting
+    together."""
+    import torch.distributed as dist
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    dist.barrier()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return sum(e.device_time_total for e in ev) / 1e3, len(ev)
+
+
+def _p9_scenes():
+    """The CLI's scenes and configs of phases 3 and 3c (the same trees), on
+    the card, at 1024x1024 and P9_SPP: (grid:100000, its camera, its
+    config), (cornell, ...)."""
+    import dataclasses
+
+    from tinyraytracing_tpu_torch import cli
+
+    out = []
+    for name in ("grid:100000", "cornell"):
+        args = cli.build_parser().parse_args(
+            ["--scene", name, "--width", "1024", "--height", "1024", "--spp",
+             str(P9_SPP)])
+        scene, cam, config = cli.build_scene(args)
+        out.append((scene, dataclasses.replace(cam, width=1024, height=1024),
+                    config))
+    return out
+
+
+def _p9_ranks(r, world, out):
+    """Phase 9a, one of the four ranks: the fused and
+    chunked queue renders at 1, 2 and 4 ranks, the chunked queue
+    preempted and resumed, the one-shot sharded queue, the sharded loss
+    and the sharded scan renders. Returns what the parent checks and
+    logs (images on the CPU)."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from tinyraytracing_tpu_torch.config import RenderConfig
+    from tinyraytracing_tpu_torch.diff import (
+        SceneParams, apply_params, render_diff, render_loss_fast,
+    )
+    from tinyraytracing_tpu_torch.integrator import fused, fused_queue, wavefront
+    from tinyraytracing_tpu_torch.models.procedural import cornell_box
+    from tinyraytracing_tpu_torch.ops.bvh import attach_bvh
+    from tinyraytracing_tpu_torch.ops.rng import master_key_data
+    from tinyraytracing_tpu_torch.parallel import mesh as pm
+
+    t0 = time.perf_counter()
+    marks = [("start", t0)]
+
+    def mark(name):
+        """Record a stage, also in ``out`` (read when the ranks hang)."""
+        marks.append((name, time.perf_counter()))
+        with open(os.path.join(out, f"marks{r}.txt"), "a") as f:
+            f.write(f"{name} {marks[-1][1] - t0:.1f}\n")
+
+    key = master_key_data(0)
+    (grid, gcam, gcfg), (cornell, ccam, ccfg) = _p9_scenes()
+    mark("scenes")
+    groups = {n: dist.new_group(list(range(n))) for n in P9_RANKS if n < world}
+    res = {"rank": r}
+
+    # what the code dispatches, beside what the kernels count: the
+    # persistent renderer's trace calls, the queue's final iteration and
+    # its lanes' ray counts summed in float64
+    dispatched, finals = [0], []
+    real_trace, real_result = fused.fused_trace_planes, fused_queue._result
+
+    def trace_counted(*a, **k):
+        dispatched[0] += 1
+        return real_trace(*a, **k)
+
+    def result_seen(s, n_pix):
+        finals.append((s["it"], float(s["ray_count"].double().sum())))
+        return real_result(s, n_pix)
+
+    fused.fused_trace_planes = trace_counted
+    fused_queue._result = result_seen
+
+    # warm: every kernel library loaded, the scenes' device records built
+    small = dataclasses.replace(ccam, width=64, height=64)
+    pm.render_fused_sharded(cornell, small, key, ccfg, 1)
+    pm.render_queue_sharded(grid, dataclasses.replace(gcam, width=64,
+                                                      height=64), key, gcfg, 1)
+    _p9_busy(lambda: torch.ones(1, device="cuda").sum())    # CUPTI start-up
+    mark("warm")
+
+    def sweep(name, run):
+        for n in P9_RANKS:
+            if r < n:
+                g = groups.get(n)
+                mesh = pm.make_mesh(group=g)
+                mesh.all_reduce(torch.zeros(1, device="cuda"))  # set-up
+                dispatched[0] = 0
+                finals.clear()
+                (img, rays), secs, counts, peak = _p9_call(
+                    lambda: run(mesh), g)
+                res[(name, n)] = dict(
+                    secs=secs, rays=float(rays), counts=counts, peak=peak,
+                    dispatched=dispatched[0], finals=list(finals),
+                    img=img.cpu() if n == world else None)  # all ranks
+            dist.barrier()
+            mark(f"{name} at {n}")
+
+    sweep("fused", lambda m: pm.render_fused_sharded(
+        cornell, ccam, key, ccfg, P9_SPP, m, lanes=262144))
+    res["fused busy"] = _p9_busy(lambda: pm.render_fused_sharded(
+        cornell, ccam, key, ccfg, P9_SPP, lanes=262144))
+    mark("fused")
+    sweep("queue", lambda m: pm.render_queue_sharded_chunked(
+        grid, gcam, key, gcfg, P9_SPP, m, lanes=262144))
+    res["queue busy"] = _p9_busy(lambda: pm.render_queue_sharded_chunked(
+        grid, gcam, key, gcfg, P9_SPP, lanes=262144))
+    mark("queue")
+
+    # preempted after one chunk, then resumed; the one-shot sharded queue
+    ck = os.path.join(out, "queue.npz")
+    part, rest = [], []
+    pm.render_queue_sharded_chunked(
+        grid, gcam, key, gcfg, P9_SPP, lanes=262144, checkpoint_path=ck,
+        stop_after_chunks=1, progress=lambda **p: part.append(p["it"]))
+    kept = os.path.exists(f"{ck}.rank{r}-of-{world}")
+    img, rays = pm.render_queue_sharded_chunked(
+        grid, gcam, key, gcfg, P9_SPP, lanes=262144, checkpoint_path=ck,
+        resume=True, progress=lambda **p: rest.append(p["it"]))
+    res["resumed"] = dict(img=img.cpu() if r == 0 else None, rays=float(rays),
+                          part=part, rest=rest, kept=kept,
+                          cleared=not os.path.exists(f"{ck}.rank{r}-of-{world}"))
+    (img, rays), secs, _, _ = _p9_call(
+        lambda: pm.render_queue_sharded(grid, gcam, key, gcfg, P9_SPP,
+                                        lanes=262144))
+    res["one-shot"] = dict(img=img.cpu() if r == 0 else None,
+                           rays=float(rays), secs=secs)
+    mark("resume, one-shot")
+
+    # the sharded loss (phase 6's cornell call) and the single-process one
+    dcfg = RenderConfig(max_depth=DIFF_DEPTH)
+    dscene, dcam = cornell_box(512, 512, device="cuda")
+    dscene = attach_bvh(dscene, dcfg)
+    target = torch.zeros(512, 512, 3, device="cuda")
+    fields = ("kd", "vertex_offset")
+
+    def loss_run(loss_fn):
+        p = SceneParams.init_from(dscene, dcam, *fields)
+        for t in p.tensors():
+            t.requires_grad_(True)
+        loss = loss_fn(p, dscene, dcam, key, target, dcfg, DIFF_SPP)
+        loss.backward()
+        return loss.detach().cpu(), {f: getattr(p, f).grad.cpu() for f in fields}
+
+    loss_run(pm.render_loss_fast_sharded)                    # warm
+    (loss, grads), secs, counts, peak = _p9_call(
+        lambda: loss_run(pm.render_loss_fast_sharded))
+    res["loss"] = dict(loss=loss, grads=grads, secs=secs, counts=counts,
+                       peak=peak)
+    res["loss busy"] = _p9_busy(lambda: loss_run(pm.render_loss_fast_sharded))
+    with torch.no_grad():          # the forward's traced rays of this rank
+        s2, c2 = apply_params(dscene, dcam,
+                              SceneParams.init_from(dscene, dcam, *fields))
+        per = -(-512 * 512 // world)
+        res["loss"]["rays"] = float(render_diff(
+            s2, c2, key, dcfg, DIFF_SPP, return_rays=True, pix_lo=r * per,
+            n_pix_local=per)[1])
+    if r == 0:
+        res["loss ref"] = loss_run(render_loss_fast)
+    dist.barrier()
+    mark("loss")
+
+    # the scan renderer on a 2x2 mesh: grid:100000 (kernel 4), cornell
+    # 64x64 (phase 4b's scene, held to the CPU by the parent)
+    mesh22 = pm.make_mesh(2, 2)
+    for axis in ("tile", "spp"):          # each axis group's set-up
+        mesh22.all_reduce(torch.zeros(1, device="cuda"), axis)
+    scfg = gcfg                     # phase 3b's: intersector "auto"
+    img, secs, counts, peak = _p9_call(lambda: pm.render_sharded(
+        grid, gcam, key, scfg, mesh22, spp=P9_SCAN_SPP))
+    res["scan"] = dict(mean=float(img.mean()), finite=bool(
+        torch.isfinite(img).all()), shape=tuple(img.shape), secs=secs,
+        counts=counts, peak=peak)
+    res["scan busy"] = _p9_busy(lambda: pm.render_sharded(
+        grid, gcam, key, scfg, mesh22, spp=P9_SCAN_SPP))
+    # the same render once more with the tracer's stats: this rank's rays
+    real_wf, counted = wavefront.trace, []
+
+    def trace_stats(*a, **k):
+        rad, st = real_wf(*a, return_stats=True, **k)
+        counted.append(st["primary"].sum() + st["shadow"].sum())
+        return rad
+
+    wavefront.trace = trace_stats
+    try:
+        pm.render_sharded(grid, gcam, key, scfg, mesh22, spp=P9_SCAN_SPP)
+    finally:
+        wavefront.trace = real_wf
+    res["scan"]["rays"] = float(sum(counted))
+    bcfg = RenderConfig(intersector="bvh_pallas")
+    small, scam = cornell_box(64, 64, device="cuda")
+    small = attach_bvh(small, bcfg)
+    res["scan small"] = pm.render_sharded(small, scam, key, bcfg, mesh22,
+                                          spp=P9_SCAN_SPP).cpu()
+    mark("scan")
+    res["marks"] = [(k, t - marks[0][1]) for k, t in marks]
+    return res
+
+
+def _p9_nccl(r, world, out):
+    """Phase 9b, one NCCL rank: the sharded calls beside the
+    single-process ones on cornell 64x64."""
+    from tinyraytracing_tpu_torch.config import RenderConfig
+    from tinyraytracing_tpu_torch.diff import SceneParams, render_loss_fast
+    from tinyraytracing_tpu_torch.integrator.fused import render_fused_stats
+    from tinyraytracing_tpu_torch.integrator.fused_queue import render_fused_queue
+    from tinyraytracing_tpu_torch.models.procedural import cornell_box
+    from tinyraytracing_tpu_torch.ops.bvh import attach_bvh
+    from tinyraytracing_tpu_torch.ops.rng import master_key_data
+    from tinyraytracing_tpu_torch.parallel import mesh as pm
+
+    key, cfg = master_key_data(0), RenderConfig(max_depth=DIFF_DEPTH)
+    scene, cam = cornell_box(64, 64, device="cuda")
+    scene = attach_bvh(scene, cfg)
+    mesh = pm.make_mesh()
+    cpu = lambda x: tuple(map(cpu, x)) if isinstance(x, tuple) else x.cpu()
+    res = {"backend": torch.distributed.get_backend(mesh.group)}
+    # spp 1: one path per pixel, so the image scatter adds each pixel once
+    # and the single-process image is exact, atomics or not
+    res["queue"] = cpu((pm.render_queue_sharded(scene, cam, key, cfg, 1, mesh,
+                                                lanes=4096),
+                        render_fused_queue(scene, cam, key, cfg, 1, lanes=4096)))
+    res["fused"] = cpu((pm.render_fused_sharded(scene, cam, key, cfg, 2, mesh,
+                                                lanes=4096),
+                        render_fused_stats(scene, cam, key, cfg, 2, lanes=4096)))
+    target = torch.zeros(64, 64, 3, device="cuda")
+    for name, fn in (("loss", pm.render_loss_fast_sharded),
+                     ("loss ref", render_loss_fast)):
+        p = SceneParams.init_from(scene, cam, "kd", "vertex_offset")
+        for t in p.tensors():
+            t.requires_grad_(True)
+        loss = fn(p, scene, cam, key, target, cfg, DIFF_SPP)
+        loss.backward()
+        res[name] = cpu((loss.detach(), p.kd.grad, p.vertex_offset.grad))
+    return res
+
+
+
+def _ulp32(x):
+    """The float32 spacing at ``x``."""
+    t = torch.tensor(x, dtype=torch.float32)
+    return float(torch.nextafter(t, torch.tensor(float("inf"))) - t)
+
+
+def _p9_launch_ok(label, per_rank, want):
+    """Log each rank's launches beside what the code implies (``want``,
+    per rank: {kernel: count}); True if they agree."""
+    ok = all(c == w for c, w in zip(per_rank, want))
+    show = lambda cs: {k: [c[k] for c in cs] for k in cs[0]
+                       if any(c[k] for c in cs)}
+    log(f"    {label}: launches per rank {show(per_rank)}, the code's count "
+        f"{show(want)}: {'ok' if ok else 'MISMATCH'}")
+    return ok
+
+
+def _p9_zero(counts, **nonzero):
+    """``counts`` with every kernel at 0 but ``nonzero``."""
+    return {k: nonzero.get(k, 0) for k in counts}
+
+
+def phase_sharded(dev, refs, backend="gloo"):
+    """Phase 9: ``parallel/`` on the card. (a) Four gloo ranks on the one
+    card (NCCL refuses two ranks on one device): ``render_fused_sharded``
+    on phase 3c's cornell (bitwise its image) and the chunked
+    ``render_queue_sharded_chunked`` on phase 3's grid:100000 (its ray
+    count within float32 rounding, its image within the scatter's
+    rounding), each at 1, 2 and 4 ranks; the chunked queue preempted after
+    one chunk and resumed, and the one-shot ``render_queue_sharded``;
+    ``render_loss_fast_sharded`` on phase 6's cornell call against the
+    single-process loss (the JAX test's bounds, gradients equal on every
+    rank); ``render_sharded`` on grid:100000 (kernel 4) within 10% of phase
+    3b's mean, and on cornell 64x64 against the CPU (phase 4b's bounds).
+    (b) One NCCL rank in a process of its own, bitwise its
+    single-process queue and fused calls. With ``backend="nccl"``
+    (``--four-cards``) the four ranks are NCCL ranks on four cards, one
+    each, and the same checks and timings run. Every collective
+    runs on the tensors' own device; the harness stages nothing. Returns
+    (ok, {kernel: launches of the main calls, all ranks})."""
+    from tinyraytracing_tpu_torch.config import RenderConfig
+    from tinyraytracing_tpu_torch.models.procedural import cornell_box
+    from tinyraytracing_tpu_torch.ops.bvh import attach_bvh
+    from tinyraytracing_tpu_torch.ops.rng import master_key_data
+
+    t_phase = time.perf_counter()
+    n_cards = P9_WORLD if backend == "nccl" else 1
+    log(f"phase 9: parallel/ over torch.distributed: {P9_WORLD} {backend} "
+        f"ranks on {n_cards} card(s), then one NCCL rank")
+    if torch.cuda.device_count() < n_cards:
+        log(f"  NCCL takes one card per rank: {torch.cuda.device_count()} "
+            f"card(s) here")
+        return False, {}
+    res = _p9_spawn(_p9_ranks, P9_WORLD, backend, "phase 9a")
+    if res is None:
+        return False, {}
+    log(f"  rank 0's seconds since it started, after each stage: "
+        f"{', '.join(f'{k} {t:.1f}' for k, t in res[0]['marks'])}; the four "
+        f"ranks in all {time.perf_counter() - t_phase:.1f} s")
+    ok, launches = True, {}
+    fused_img, fused_rays, fused_secs = refs["fused"]
+    queue_img, queue_rays, queue_secs = refs["queue"]
+    queue_img = queue_img.reshape(1024, 1024, 3)
+
+    def add(counts_per_rank):
+        for c in counts_per_rank:
+            for k, v in c.items():
+                launches[k] = launches.get(k, 0) + v
+
+    for name, single, secs1 in (("fused", fused_rays, fused_secs),
+                                ("queue", queue_rays, queue_secs)):
+        log(f"  {name}: single process (phase {'3c' if name == 'fused' else '3'}) "
+            f"{secs1:.3f} s, {single:.0f} rays, {single / secs1:.4g} rays/s")
+        for n in P9_RANKS:
+            runs = [res[i][(name, n)] for i in range(n)]
+            wall = max(x["secs"] for x in runs)
+            rays = runs[0]["rays"]
+            counts = [x["counts"] for x in runs]
+            log(f"  {name} at {n} rank(s): wall {wall:.3f} s (ranks "
+                f"{', '.join(f'{x['secs']:.3f}' for x in runs)}), {rays:.0f} "
+                f"rays, {rays / wall:.4g} rays/s ({rays / wall / (single / secs1):.2f}x "
+                f"the single process); peak per rank "
+                f"{', '.join(f'{x['peak']:.1f}' for x in runs)} MiB")
+            if name == "fused":
+                want = [_p9_zero(c, trace_closest=x["dispatched"])
+                        for c, x in zip(counts, runs)]
+            else:
+                want = [_p9_zero(c, trace_closest=x["finals"][-1][0],
+                                 trace_occlusion=x["finals"][-1][0])
+                        for c, x in zip(counts, runs)]
+                exact = [x["finals"][-1][1] for x in runs]
+                log(f"    each rank's lanes' counts summed in float64: {exact}"
+                    f" = {sum(exact):.0f}")
+                ok &= sum(exact) == round(sum(exact))
+            ok &= _p9_launch_ok(f"{name} at {n}", counts, want)
+            ok &= all(x["rays"] == rays for x in runs)
+            # float32 totals: a few ulps of the total apart
+            ok &= abs(rays - single) <= 8 * _ulp32(single)
+            if n == P9_WORLD:
+                add(counts)
+                img = runs[0]["img"]
+                if name == "fused":
+                    same = torch.equal(img, fused_img)
+                    log(f"    image bitwise phase 3c's: {same}; rays "
+                        f"{rays:.0f} vs {single:.0f}")
+                else:
+                    close = torch.isclose(img, queue_img, rtol=1e-5, atol=1e-7)
+                    same = bool(close.all())
+                    log(f"    image within rtol 1e-5 / atol 1e-7 of phase 3's: "
+                        f"{same} (max abs diff "
+                        f"{float((img - queue_img).abs().max()):.3g}); rays "
+                        f"{rays:.0f} vs {single:.0f}")
+                ok &= same and all(torch.equal(res[i][(name, n)]["img"], img)
+                                   for i in range(n))
+        busy = [res[i][f"{name} busy"] for i in range(P9_WORLD)]
+        wall = max(res[i][(name, P9_WORLD)]["secs"] for i in range(P9_WORLD))
+        log(f"    under torch.profiler at {P9_WORLD} ranks: device busy "
+            f"{' + '.join(f'{b:.1f}' for b, _ in busy)} ms in "
+            f"{sum(n for _, n in busy)} device ops = "
+            f"{100 * sum(b for b, _ in busy) / (1e3 * wall):.0f}% of the wall")
+
+    # preempt, resume, one-shot
+    rz = [res[i]["resumed"] for i in range(P9_WORLD)]
+    one = res[0]["one-shot"]
+    whole = res[0][("queue", P9_WORLD)]
+    close = torch.isclose(rz[0]["img"], one["img"], rtol=1e-5, atol=1e-7)
+    close_w = torch.isclose(whole["img"], one["img"], rtol=1e-5, atol=1e-7)
+    log(f"  queue preempted after iterations {rz[0]['part']}, resumed at "
+        f"{rz[0]['rest'][0]} of {rz[0]['rest'][-1]} (snapshots kept "
+        f"{[x['kept'] for x in rz]}, removed {[x['cleared'] for x in rz]}); "
+        f"resumed and run-through images within rtol 1e-5 / atol 1e-7 of "
+        f"the one-shot render_queue_sharded ({one['secs']:.3f} s): "
+        f"{bool(close.all())}, {bool(close_w.all())}; rays {rz[0]['rays']:.0f}, "
+        f"{whole['rays']:.0f}, {one['rays']:.0f}")
+    ok &= (all(x["kept"] and x["cleared"] for x in rz)
+           and rz[0]["rest"][0] > rz[0]["part"][-1]
+           and bool(close.all()) and bool(close_w.all())
+           and abs(rz[0]["rays"] - one["rays"]) <= 8 * _ulp32(one["rays"]))
+
+    # the loss
+    lr = [res[i]["loss"] for i in range(P9_WORLD)]
+    ref_loss, ref_grads = res[0]["loss ref"]
+    # forward and the backward's recompute: a closest-hit and a shadow
+    # dispatch per bounce and pass, each
+    n = 2 * DIFF_DEPTH * DIFF_SPP
+    want = [_p9_zero(x["counts"], trace_closest=n, trace_occlusion=n)
+            for x in lr]
+    ok &= _p9_launch_ok("loss (forward + recompute)", [x["counts"] for x in lr],
+                        want)
+    add([x["counts"] for x in lr])
+    same = all(torch.equal(x["loss"], lr[0]["loss"])
+               and all(torch.equal(x["grads"][f], lr[0]["grads"][f])
+                       for f in ref_grads) for x in lr)
+    rel = abs(float(lr[0]["loss"]) - float(ref_loss)) / abs(float(ref_loss))
+    gclose = all(torch.allclose(lr[0]["grads"][f], ref_grads[f], rtol=2e-4,
+                                atol=1e-6) for f in ref_grads)
+    gdist = {f: float((lr[0]["grads"][f] - ref_grads[f]).norm()
+                      / ref_grads[f].norm()) for f in ref_grads}
+    busy = [res[i]["loss busy"] for i in range(P9_WORLD)]
+    wall = max(x["secs"] for x in lr)
+    rays = sum(x["rays"] for x in lr)
+    log(f"  render_loss_fast_sharded cornell 512x512, depth {DIFF_DEPTH}, "
+        f"{DIFF_SPP} spp, kd + vertex_offset: forward + backward {wall:.3f} s, "
+        f"the forward's {rays:.0f} traced rays over it: {rays / wall:.4g} "
+        f"rays/s "
+        f"(peak per rank {', '.join(f'{x['peak']:.1f}' for x in lr)} MiB); "
+        f"loss {float(lr[0]['loss']):.7g} vs single-process "
+        f"{float(ref_loss):.7g} ({rel:.2g} relative, bound 1e-5); gradients "
+        f"within rtol 2e-4 / atol 1e-6: {gclose} (relative distances "
+        f"{gdist}); equal on every rank: {same}; device busy "
+        f"{' + '.join(f'{b:.1f}' for b, _ in busy)} ms = "
+        f"{100 * sum(b for b, _ in busy) / (1e3 * wall):.0f}% of the wall")
+    ok &= same and rel <= 1e-5 and gclose
+
+    # the scan renderer
+    sc = [res[i]["scan"] for i in range(P9_WORLD)]
+    want = [_p9_zero(x["counts"], bvh_intersect=(P9_SCAN_SPP // 2) * 16 * 2)
+            for x in sc]
+    ok &= _p9_launch_ok("render_sharded grid:100000", [x["counts"] for x in sc],
+                        want)
+    add([x["counts"] for x in sc])
+    mean_rel = abs(sc[0]["mean"] - refs["scan mean"]) / refs["scan mean"]
+    busy = [res[i]["scan busy"] for i in range(P9_WORLD)]
+    wall = max(x["secs"] for x in sc)
+    rays = sum(x["rays"] for x in sc)
+    log(f"  render_sharded grid:100000 1024x1024, {P9_SCAN_SPP} spp, mesh 2x2, "
+        f"auto: {wall:.3f} s, {rays:.0f} traced rays, {rays / wall:.4g} "
+        f"rays/s; image mean {sc[0]['mean']:.6g} vs phase 3b's "
+        f"{refs['scan mean']:.6g} at 1 spp ({mean_rel:.3g} relative, bound "
+        f"0.1); peak per rank {', '.join(f'{x['peak']:.1f}' for x in sc)} MiB; "
+        f"device busy {' + '.join(f'{b:.1f}' for b, _ in busy)} ms = "
+        f"{100 * sum(b for b, _ in busy) / (1e3 * wall):.0f}% of the wall")
+    ok &= (all(x["finite"] and x["shape"] == (1024, 1024, 3) for x in sc)
+           and mean_rel <= 0.1)
+    cfg = RenderConfig(intersector="bvh_pallas")
+    scene, cam = cornell_box(64, 64, device="cpu")
+    scene = attach_bvh(scene, cfg)
+    t0 = time.perf_counter()
+    cpu = _tests_module("torch_parallel_ranks").serial_render_sharded(
+        scene, cam, master_key_data(0), cfg, P9_SCAN_SPP, 2, 2)
+    secs = {"cuda": 0.0, "cpu": time.perf_counter() - t0}
+    card = res[0]["scan small"]
+    ok &= all(torch.equal(res[i]["scan small"], card) for i in range(P9_WORLD))
+    ok &= _compare_images(f"  render_sharded cornell 64x64 @ {P9_SCAN_SPP} spp, "
+                          f"mesh 2x2, bvh_pallas (the CPU: its shares run "
+                          f"serially)", {"cuda": card, "cpu": cpu}, secs, 64)
+
+    # (b) one NCCL rank
+    nc = _p9_spawn(_p9_nccl, 1, "nccl", "phase 9b")
+    if nc is None:
+        return False, launches
+    nc = nc[0]
+    (qi, qr), (qi1, qr1) = nc["queue"]
+    (fi, fr), (fi1, fr1) = nc["fused"]
+    q_same = torch.equal(qi, qi1.reshape(qi.shape)) and torch.equal(qr, qr1)
+    f_same = torch.equal(fi, fi1) and torch.equal(fr, fr1)
+    (l, gk, gv), (l1, gk1, gv1) = nc["loss"], nc["loss ref"]
+    lrel = abs(float(l) - float(l1)) / abs(float(l1))
+    lclose = (torch.allclose(gk, gk1, rtol=2e-4, atol=1e-6)
+              and torch.allclose(gv, gv1, rtol=2e-4, atol=1e-6))
+    log(f"  one {nc['backend']} rank, cornell 64x64: render_queue_sharded "
+        f"(1 spp) bitwise render_fused_queue: {q_same}; render_fused_sharded "
+        f"bitwise render_fused: {f_same}; render_loss_fast_sharded's loss "
+        f"{lrel:.2g} from render_loss_fast's (bound 1e-5; a sum, then a "
+        f"division, against torch.mean) and its gradients within rtol 2e-4 / "
+        f"atol 1e-6: {lclose} (the cotangent scatters' atomics add in no "
+        f"fixed order, so no two runs of render_loss_fast are bitwise equal "
+        f"on the card)")
+    ok &= nc["backend"] == "nccl" and q_same and f_same and lrel <= 1e-5 and lclose
+    log(f"phase 9: {'ok' if ok else 'FAILED'} in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return ok, launches
+
+
+# ---------------------------------------------------------------------------
 # --compare: the redesigned kernels against a parent tree, in one call
 # ---------------------------------------------------------------------------
 
@@ -2159,12 +2747,35 @@ def compare(parent, out_path):
     return 0 if ok else 1
 
 
+def four_cards():
+    """Phase 9 across four cards, one NCCL rank each: the same renders,
+    checks and timings as on the one card, against phases 3, 3b and 3c's
+    single-process renders on card 0."""
+    from tinyraytracing_tpu_torch.ops import kernels
+
+    log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, check=True).stdout.strip())
+    secs, _ = kernels.build()
+    log(f"phase 1: kernels built in {secs:.1f}s")
+    dev, refs = torch.device("cuda"), {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ok = (phase_cli(dev, tmp, refs)[0] and phase_cli_scan(dev, tmp, refs)[0]
+              and phase_cli_persistent(dev, tmp, refs))
+    ok = phase_sharded(dev, refs, "nccl")[0] and ok
+    log(f"four cards: {'ok' if ok else 'FAILED'}")
+    return 0 if ok else 1
+
+
 def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--compare", metavar="PARENT",
                     help="time the redesigned kernels against the tree PARENT")
+    ap.add_argument("--four-cards", action="store_true",
+                    help="phase 9 with one NCCL rank on each of four cards "
+                         "(after phases 1, 3, 3b and 3c on card 0)")
     ap.add_argument("--profile-walk", action="store_true",
                     help="where the trace kernels' time goes (clock64 counts)")
     ap.add_argument("--sass", metavar="TREE",
@@ -2184,6 +2795,8 @@ def main(argv=None) -> int:
         return sass_counts(args.sass, args.out)
     if args.compare:
         return compare(os.path.abspath(args.compare), args.out)
+    if args.four_cards:
+        return four_cards()
     if args.profile_walk:
         return profile_walk(args.out)
     from tinyraytracing_tpu_torch.ops import kernels
@@ -2214,10 +2827,11 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     ok2, ok2b, reports = phase_kernels(dev)
+    refs = {}                   # phases 3, 3b and 3c's renders, for phase 9
     with tempfile.TemporaryDirectory() as tmp:
-        ok3, launches = phase_cli(dev, tmp)
-        ok3b, scan_launches = phase_cli_scan(dev, tmp)
-        ok3c = phase_cli_persistent(dev, tmp)
+        ok3, launches = phase_cli(dev, tmp, refs)
+        ok3b, scan_launches = phase_cli_scan(dev, tmp, refs)
+        ok3c = phase_cli_persistent(dev, tmp, refs)
         ok3d, near_launches = phase_near_queue(dev)
         ok5 = phase_resume(dev, tmp)
     launches.update(scan_launches)
@@ -2234,6 +2848,9 @@ def main(argv=None) -> int:
     log(f"phases 7 and 8 took {t7 - t0:.1f} s and "
         f"{time.perf_counter() - t7:.1f} s")
     for k, n in oracle_launches.items():
+        launches[k] = launches.get(k, 0) + n
+    ok9, sharded_launches = phase_sharded(dev, refs)
+    for k, n in sharded_launches.items():
         launches[k] = launches.get(k, 0) + n
 
     # no single PyTorch call computes a BVH walk or brute-force closest
@@ -2254,7 +2871,7 @@ def main(argv=None) -> int:
               "near queue render": ok3d, "render vs render": ok4,
               "scan vs scan": ok4b, "persistent vs persistent": ok4c,
               "chunked resume": ok5, "diff": ok6, "edge terms": ok7,
-              "oracles": ok8}
+              "oracles": ok8, "sharded": ok9}
     log("phases: " + ", ".join(f"{k} {'ok' if v else 'FAILED'}"
                                for k, v in phases.items())
         + f"; {time.perf_counter() - t_start:.0f} s in all")

@@ -14,7 +14,14 @@ saves the fast differentiable path's image (``render_diff``) and the
 gradients of ``render_loss_fast`` and of the scan renderer's
 ``render_loss`` in ``DIFF_FIELDS`` (tests/test_torch_diff.py); one written
 ``regen:<scene>`` renders the regeneration oracles' ``REGEN_CASES``
-(tests/test_torch_regen.py).
+(tests/test_torch_regen.py); one written ``sharded:<scene>[:<kind>]``
+renders ``SHARDED_CASES`` (those of renderer ``<kind>``: scan, fused,
+queue, or "slices" for the slices alone) with the JAX package's sharded renderers on a 2x2 mesh
+of its first four devices (run it with
+``--xla_force_host_platform_device_count=8`` in XLA_FLAGS, as
+tests/conftest.py sets it) and with the port's per-rank shares, and the
+queue renderer on the path-queue slices ``SLICES``
+(tests/test_torch_parallel.py).
 
 Three things make the JAX package's CPU render differ from the port's in
 the last ulp, and each of them alone flips a few shadow and bounce
@@ -303,6 +310,84 @@ def regen_images(name, images):
         images[f"regen-{name}-{case}-rays-port"] = np.float32(rays)
 
 
+# the sharded renderers on a 2x2 mesh: case -> (renderer, width, height,
+# spp); the 15x13 image has a pixel count 4 does not divide, spp 5 pads
+# the spp axis of 2
+SHARDED_CASES = {"scan": ("scan", 16, 16, 2),
+                 "scan_ragged": ("scan", 15, 13, 5),
+                 "fused": ("fused", 16, 16, 2),
+                 "fused_ragged": ("fused", 15, 13, 2),
+                 "queue": ("queue", 16, 16, 2),
+                 "queue_ragged": ("queue", 15, 13, 5)}
+SHARDED_CONFIG = dict(intersector="bvh")
+# path-queue slices (path_lo, n_paths) of the 16x16 x SLICE_SPP = 1,024
+# paths at 128 lanes: no n_paths is a multiple of 128, and the last slice
+# reaches past the path count
+SLICE_SPP = 4
+SLICES = ((0, 300), (300, 400), (700, 400))
+
+
+def sharded_images(name, images, kind=None):
+    """The sharded cases on scene ``name`` (of renderer ``kind``, default
+    all), both packages: JAX's sharded renderers on a 2x2 mesh, the
+    port's shares combined as its collectives combine them; and the
+    path-queue slices (kind None or "slices")."""
+    import dataclasses
+
+    from tinyraytracing_tpu.integrator.fused_queue import render_fused_queue as jqueue
+    from tinyraytracing_tpu.parallel import mesh as jmesh
+    from tinyraytracing_tpu_torch.integrator.fused_queue import render_fused_queue as tqueue
+    from tinyraytracing_tpu_torch.parallel import mesh as tmesh
+    from tests.torch_parallel_ranks import serial_render_sharded
+
+    js, jcam0, ts, tcam0 = scenes(name)
+    mesh = jmesh.make_mesh(2, 2, devices=jax.devices()[:4])
+    jcfg, tcfg = JConfig(**SHARDED_CONFIG), RenderConfig(**SHARDED_CONFIG)
+    jkey, tkey = jax.random.PRNGKey(SEED), master_key_data(SEED)
+    for case, (renderer, w, h, spp) in SHARDED_CASES.items():
+        if kind not in (None, renderer):
+            continue
+        jcam = dataclasses.replace(jcam0, width=w, height=h)
+        tcam = dataclasses.replace(tcam0, width=w, height=h)
+        if renderer == "scan":
+            jimg = jmesh.render_sharded(js, jcam, jkey, jcfg, mesh, spp=spp)
+            img = serial_render_sharded(ts, tcam, tkey, tcfg, spp, 2, 2)
+        elif renderer == "fused":
+            jimg, jrays = jmesh.render_fused_sharded(js, jcam, jkey, jcfg, spp,
+                                                     mesh, lanes=LANES)
+            shares = [tmesh._fused_share(ts, tcam, tkey, tcfg, spp, LANES, 4, r)
+                      for r in range(4)]
+            img = tmesh._slots_to_image(torch.cat([x for x, _ in shares]), tcam)
+            rays = sum(float(y) for _, y in shares)
+        else:
+            jimg, jrays = jmesh.render_queue_sharded(js, jcam, jkey, jcfg, spp,
+                                                     mesh, lanes=LANES)
+            shares = [tmesh._queue_share(ts, tcam, tkey, tcfg, spp, LANES, 4, r)
+                      for r in range(4)]
+            img = shares[0][0] + shares[1][0] + shares[2][0] + shares[3][0]
+            rays = sum(float(y) for _, y in shares)
+        images[f"sharded-{case}-jax"] = np.asarray(jimg).reshape(h, w, 3)
+        images[f"sharded-{case}-port"] = img.reshape(h, w, 3).numpy()
+        if renderer != "scan":
+            images[f"sharded-{case}-rays-jax"] = np.float32(jrays)
+            images[f"sharded-{case}-rays-port"] = np.float32(rays)
+    if kind not in (None, "slices"):
+        return
+    # the path-queue slices and the whole queue, 16x16
+    jq = jax.jit(jqueue, static_argnames=("config", "spp", "lanes",
+                                          "n_paths"))
+    for lo, n in SLICES + ((0, None),):
+        tag = "full" if n is None else lo
+        jimg, jrays = jq(js, jcam0, jkey, jcfg, SLICE_SPP, lanes=128,
+                         path_lo=lo, n_paths=n)
+        img, rays = tqueue(ts, tcam0, tkey, tcfg, SLICE_SPP, lanes=128,
+                           path_lo=lo, n_paths=n)
+        images[f"slice-{tag}-jax"] = np.asarray(jimg)
+        images[f"slice-{tag}-port"] = img.numpy()
+        images[f"slice-{tag}-rays-jax"] = np.float32(jrays)
+        images[f"slice-{tag}-rays-port"] = np.float32(rays)
+
+
 def run_processes(out_dir, names):
     """Render ``names`` (one process each, side by side, with FMA
     contraction off) into ``out_dir``; returns all their images."""
@@ -345,6 +430,9 @@ def main(out, names):
             diff_arrays(name[5:], images)
         elif name.startswith("regen:"):
             regen_images(name[6:], images)
+        elif name.startswith("sharded:"):
+            scene, *kind = name.split(":")[1:]
+            sharded_images(scene, images, *kind)
     if not names:
         queue = list(dict.fromkeys(n for n, _ in CASES))
     for name in queue:

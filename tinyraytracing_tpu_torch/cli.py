@@ -14,10 +14,8 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-import logging
 import os
 import sys
-import time
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -134,10 +132,13 @@ def build_scene(args):
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 
-    from tinyraytracing_tpu_torch.render import render_image
+    import torch
 
-    logging.basicConfig(level=logging.INFO, format="%(message)s")
-    log = logging.getLogger("tinyraytracing_tpu_torch")
+    from tinyraytracing_tpu_torch.render import render_image
+    from tinyraytracing_tpu_torch.utils.logging import get_logger
+    from tinyraytracing_tpu_torch.utils.timing import Timer
+
+    log = get_logger()
     scene, cam, config = build_scene(args)
     if args.width or args.height:
         cam = dataclasses.replace(
@@ -155,14 +156,15 @@ def main(argv=None) -> int:
     out = args.out or os.path.join(args.basedir or ".", f"image{args.spp}.png")
     prog = lambda it, counter, seconds: log.info(
         "  chunk done: iter=%d paths_started=%d (%.1fs)", it, counter, seconds)
-    t0 = time.perf_counter()
-    render_image(scene, cam, config, spp=args.spp, seed=args.seed,
-                 out_path=out, renderer=args.renderer, lanes=args.lanes,
-                 checkpoint_path=args.checkpoint, resume=args.resume,
-                 progress=prog)
-    dt = time.perf_counter() - t0
+    sync = torch.cuda.synchronize if args.device == "cuda" else None
+    with Timer(sync) as t:
+        render_image(scene, cam, config, spp=args.spp, seed=args.seed,
+                     out_path=out, renderer=args.renderer, lanes=args.lanes,
+                     checkpoint_path=args.checkpoint, resume=args.resume,
+                     progress=prog)
     n_rays = cam.width * cam.height * args.spp
-    log.info("rendered %s in %.2fs (%.3g camera rays/s)", out, dt, n_rays / dt)
+    log.info("rendered %s in %.2fs (%.3g camera rays/s)", out, t.elapsed,
+             n_rays / t.elapsed)
     return 0
 
 

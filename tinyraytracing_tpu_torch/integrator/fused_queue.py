@@ -85,18 +85,27 @@ def _morton_key(o, aabb_lo, aabb_inv, cells: int):
 
 
 def _queue_setup(scene, cam: Camera, key, config: RenderConfig, spp: int,
-                 lanes: int, max_iters: int | None = None):
+                 lanes: int, path_lo: int = 0, n_paths: int | None = None,
+                 max_iters: int | None = None):
     """The queue loop of one render: returns (max_iters, init_state,
     more, body) — the initial lane state (a dict of tensors, plus the
     iteration and queue counters as ints), the loop's condition and one
     iteration. Shared by the one-shot and the chunked renderer, so both
-    run the same body. An explicit ``max_iters`` replaces the default."""
+    run the same body. An explicit ``max_iters`` replaces the default.
+
+    ``path_lo`` and ``n_paths`` (default: all W*H*spp paths) select the
+    slice [path_lo, path_lo + n_paths) of the global path queue; the lane
+    count and ``max_iters`` follow ``n_paths``, and ids past the global
+    path count never start (the last slice of a sharded render may reach
+    past it)."""
     dev = scene.device
     f32, i64 = torch.float32, torch.int64
     c = lambda x: torch.tensor(x, dtype=f32, device=dev)
     W, H = cam.width, cam.height
     n_pix = W * H
-    n_paths = n_pix * spp
+    total_all = n_pix * spp
+    if n_paths is None:
+        n_paths = total_all
     R = min(lanes, n_paths)
     R = -(-R // 128) * 128
     if max_iters is None:
@@ -193,9 +202,9 @@ def _queue_setup(scene, cam: Camera, key, config: RenderConfig, spp: int,
             elig = dead
         rank = torch.cumsum(elig.to(i64), 0) - 1
         new_id = counter + rank
-        can = elig & (new_id < n_paths)
+        can = elig & (new_id < n_paths) & (path_lo + new_id < total_all)
         path_id = torch.where(can, new_id, path_id)
-        norg, nd, npk, npix = camera_ray(torch.clamp_min(path_id, 0))
+        norg, nd, npk, npix = camera_ray(path_lo + torch.clamp_min(path_id, 0))
         o = vec.where(can, norg, o)
         d = vec.where(can, nd, d)
         pkd = (torch.where(can, npk[0], pkd[0]), torch.where(can, npk[1], pkd[1]))
@@ -329,26 +338,34 @@ def _result(s, n_pix: int):
 
 def render_fused_queue(scene, cam: Camera, key, config: RenderConfig,
                        spp: int, lanes: int = 262144,
-                       max_iters: int | None = None):
+                       max_iters: int | None = None, path_lo: int = 0,
+                       n_paths: int | None = None):
     """Render with the queue-fed fused wavefront on ``scene``'s device.
 
     ``key`` is the (2,) master key words (``ops.rng.master_key_data``).
     Returns ((n_pix, 3) float32 linear image in PIXEL order, traced-ray
-    count as a float32 0-d tensor). Requires scene.bvh with packed leaves.
+    count as a float32 0-d tensor). ``path_lo`` and ``n_paths`` select a
+    slice of the global path queue [0, W*H*spp) (``parallel/mesh.py``
+    renders one per rank); path id p is sample p % spp of pixel
+    ``order[p // spp]``. Requires scene.bvh with packed leaves.
     """
     _, init_state, more, body = _queue_setup(scene, cam, key, config, spp,
-                                             lanes, max_iters)
+                                             lanes, path_lo, n_paths,
+                                             max_iters)
     s = init_state()
     while more(s):
         s = body(s)
     return _result(s, cam.width * cam.height)
 
 
-def _snapshot_meta(scene, cam, key, config, spp, lanes):
+def _snapshot_meta(scene, cam, key, config, spp, lanes, path_lo=0,
+                   n_paths=None):
     """What a snapshot is bound to: any difference starts afresh."""
     from tinyraytracing_tpu_torch.utils import checkpoint as ckpt
 
-    return dict(spp=spp, lanes=lanes, W=cam.width, H=cam.height,
+    return dict(spp=spp, lanes=lanes, path_lo=path_lo,
+                n_paths=n_paths if n_paths is not None else -1,
+                W=cam.width, H=cam.height,
                 key=np.asarray(key, dtype=np.int64), config=repr(config),
                 scene_tris=scene.num_triangles,
                 scene_vsum=ckpt.scene_checksum(scene),
@@ -368,17 +385,21 @@ def render_fused_queue_chunked(
     checkpoint_every_s: float = 120.0,
     resume: bool = False,
     progress=None,
+    path_lo: int = 0,
+    n_paths: int | None = None,
 ):
     """The queue render in chunks of iterations, each sized to take about
     ``target_chunk_s`` (the JAX package's ``render_fused_queue_chunked``).
-    Returns what ``render_fused_queue`` returns; on the CPU bitwise the
-    same, on the card up to the scatter's float-add order.
+    Returns what ``render_fused_queue`` returns for the same ``path_lo`` /
+    ``n_paths``; on the CPU bitwise the same, on the card up to the
+    scatter's float-add order.
 
     With ``checkpoint_path`` the lane state is saved every
     ``checkpoint_every_s`` (between chunks) and removed when the render
     ends; ``resume=True`` starts from the snapshot there, if any. The
     snapshot is bound to the key, the whole config, the scene (triangle
-    count and checksum), spp, lanes, the image size and the state layout:
+    count and checksum), spp, lanes, the path slice, the image size and
+    the state layout:
     any difference, or a snapshot of another layout (the JAX package's
     included), starts the render afresh. ``progress(it=, counter=,
     seconds=)`` is called after every chunk.
@@ -386,9 +407,11 @@ def render_fused_queue_chunked(
     from tinyraytracing_tpu_torch.utils import checkpoint as ckpt
 
     max_iters, init_state, more, body = _queue_setup(scene, cam, key, config,
-                                                     spp, lanes)
+                                                     spp, lanes, path_lo,
+                                                     n_paths)
     s = init_state()
-    meta = _snapshot_meta(scene, cam, key, config, spp, lanes)
+    meta = _snapshot_meta(scene, cam, key, config, spp, lanes, path_lo,
+                          n_paths)
     if resume and checkpoint_path:
         leaves = ckpt.load_queue_state(checkpoint_path, meta)
         if leaves is not None:

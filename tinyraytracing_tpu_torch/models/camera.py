@@ -88,3 +88,54 @@ def generate_rays(cam: Camera, key, device="cuda"):
          + y[:, None] * vertical[None, :] - eye[None, :])
     d = normalize(d)
     return eye.expand(d.shape), d
+
+
+def generate_rays_for_pixels(cam: Camera, pix, key, device="cuda"):
+    """Jittered rays for an arbitrary set of pixels, on ``device`` (the
+    card unless the caller asks for the CPU). ``pix``: (N,) global
+    row-major pixel ids (i*W + j); ``key``: (k0, k1) key words. Returns
+    (origins (N, 3), directions (N, 3)); the jitter is
+    ``uniform(key, (2, N)) - 0.5``, as in ``generate_rays``. The sharded
+    scan renderer (``parallel/mesh.py``) gives each rank a slice of the
+    pixels."""
+    from tinyraytracing_tpu_torch.ops.linalg import normalize
+    from tinyraytracing_tpu_torch.ops.rng import uniform
+
+    W, H = cam.width, cam.height
+    eye, horizontal, vertical, llc = (
+        v.to(device) for v in camera_basis(cam))
+    c = lambda x: torch.tensor(x, dtype=torch.float32, device=device)
+    pixf = torch.as_tensor(pix, device=device).to(torch.float32)
+    i = torch.floor(pixf / c(float(W)))
+    j = pixf - i * c(float(W))
+    jit = uniform(key, (2,) + tuple(pixf.shape), device) - 0.5
+    x = j / c(W - 1.0) + jit[0] / c(float(W))
+    y = (H - i) / c(H - 1.0) + jit[1] / c(float(H))
+    d = (llc[None, :] + x[:, None] * horizontal[None, :]
+         + y[:, None] * vertical[None, :] - eye[None, :])
+    d = normalize(d)
+    return eye.expand(d.shape), d
+
+
+def generate_rays_np(cam: Camera, x, y):
+    """Host-side (numpy, float64) rays through the screen points (x, y)
+    (main.cpp:88-93's mapping), for tests against hand math. Returns
+    (origins (N, 3), directions (N, 3)) as float64 arrays."""
+    import numpy as np
+
+    f64 = lambda t: t.detach().cpu().double().numpy()
+    fovy = float(cam.fovy)
+    eye, lookat, up = f64(cam.eye), f64(cam.lookat), f64(cam.up)
+    h = np.tan(np.deg2rad(fovy) / 2)
+    vh, vw = 2 * h, 2 * h * cam.aspect
+    w = eye - lookat
+    w /= np.linalg.norm(w)
+    u = np.cross(up, w)
+    u /= np.linalg.norm(u)
+    v = np.cross(w, u)
+    horizontal, vertical = vw * u, vh * v
+    llc = eye - horizontal / 2 - vertical / 2 - w
+    d = (llc + np.asarray(x)[:, None] * horizontal
+         + np.asarray(y)[:, None] * vertical - eye)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return np.broadcast_to(eye, d.shape), d
