@@ -29,7 +29,16 @@ phase 3c's image) and ``render_queue_sharded_chunked`` (phase 3's ray
 count within float32 rounding) at 1, 2 and 4 ranks, preempt and resume
 the sharded queue, run phase 6's loss through ``render_loss_fast_sharded``
 and grid:100000 through ``render_sharded`` (the packet-BVH kernel); then
-one NCCL rank matches its single-process calls. The CLI's tree must come
+one NCCL rank matches its single-process calls bitwise (the queue at 4
+spp, the loss's gradients). Renders and gradients repeat bitwise: phases
+3, 3c, 3d and 8 hold each main-path render's rerun with the same key, and
+phase 6 each loss's gradients, to the first run's bits, and phase 5 the
+resumed queue render to the one-shot one. Phase 6b holds the two
+fixed-order scatter kernels (``csrc/scatter_add.cu``, no TPU counterpart:
+they replace ``index_add_``'s atomics) bitwise to their plain versions on
+calls copied from phases 3, 6 and 8, timed against ``index_add_`` and
+``index_put_``; phase 10 runs the two inverse-rendering examples
+(``tinyraytracing_tpu_torch/examples/``) at 32x32. The CLI's tree must come
 from the native builder (``native/``, built with g++ in phase 1). The
 slot kernel is also checked on grid6000 and on the tie scene of the CPU
 tests (``tests/torch_slot_emulate.py``). Run from the repository root:
@@ -68,6 +77,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -85,7 +95,9 @@ SOURCES = {"trace_closest": CSRC + "trace.cu",
            "trace_near": CSRC + "trace.cu",
            "packet_dirs": CSRC + "trace.cu",
            "bvh_intersect": CSRC + "bvh_intersect.cu",
-           "slot_intersect": CSRC + "slot_intersect.cu"}
+           "slot_intersect": CSRC + "slot_intersect.cu",
+           "scatter_rows": CSRC + "scatter_add.cu",
+           "scatter_fixed": CSRC + "scatter_add.cu"}
 REPLACES = {
     "trace_closest": "tinyraytracing_tpu/ops/pallas_trace.py:962",
     "trace_occlusion": "tinyraytracing_tpu/ops/pallas_trace.py:206",
@@ -93,6 +105,14 @@ REPLACES = {
     "packet_dirs": "tinyraytracing_tpu/ops/pallas_trace.py:376",
     "bvh_intersect": "tinyraytracing_tpu/ops/pallas_bvh.py:188",
     "slot_intersect": "tinyraytracing_tpu/ops/pallas_intersect.py:168",
+    # no TPU counterpart: the JAX package's scatter-adds are XLA's, in a
+    # fixed order; the port's took index_add_'s atomics until these
+    "scatter_rows": "none (no TPU counterpart: replaces index_add_ at "
+                    "tinyraytracing_tpu_torch/integrator/fused_queue.py and "
+                    "integrator/regen.py)",
+    "scatter_fixed": "none (no TPU counterpart: replaces index_add_ in the "
+                     "backward of tinyraytracing_tpu_torch/ops/lookup.py "
+                     "gather_rows)",
 }
 # H100 SXM datasheet peaks: float32 outside the tensor
 # cores, and HBM bandwidth
@@ -241,9 +261,11 @@ def _tests_module(name):
 
 
 def _kernel_modules():
-    from tinyraytracing_tpu_torch.ops import bvh_intersect, slot_intersect, trace
+    from tinyraytracing_tpu_torch.ops import (
+        bvh_intersect, scatter, slot_intersect, trace,
+    )
 
-    return (trace, bvh_intersect, slot_intersect)
+    return (trace, bvh_intersect, slot_intersect, scatter)
 
 
 def _counted(fn):
@@ -724,6 +746,34 @@ def _captured_rays(kind, picks):
         setattr(mod, fn, real)
 
 
+# the queue's and render_regen's image scatter copied at this iteration
+SCATTER_PICK = 20
+
+
+@contextlib.contextmanager
+def _captured_scatter(mod, fn, picks=None):
+    """While the block runs, CPU copies of the arguments that ``mod.fn`` (a
+    scatter wrapper, as the caller's module imported it) is given on its
+    calls numbered ``picks`` (from 0; every call if None), in a list, the
+    destination's copy taken before the add. The wrapper runs as before;
+    the copies (on the CPU, out of the device's peak) let phase 6b hold
+    the kernels to their plain versions at a main path's own shapes."""
+    real, kept, calls = getattr(mod, fn), [], [0]
+
+    def copying(*args, **kw):
+        if picks is None or calls[0] in picks:
+            kept.append(tuple(a.cpu() if isinstance(a, torch.Tensor) else a
+                              for a in args) + tuple(kw.values()))
+        calls[0] += 1
+        return real(*args, **kw)
+
+    setattr(mod, fn, copying)
+    try:
+        yield kept
+    finally:
+        setattr(mod, fn, real)
+
+
 def _main_path_rays_ok(name, scene, kind, seen, picks, cfg, reports, phase):
     """The captured dispatches ``seen`` through ``phase_intersect_kernels``:
     every one of ``picks`` captured, and each bitwise its plain version."""
@@ -779,10 +829,13 @@ def phase_cli(dev, out_dir, refs):
     """Phase 3: grid:100000 through the CLI with "auto" (the queue, through
     the chunked driver). Only the render call is timed; kernel and busy time
     come from torch.profiler of the same render run again (_render_report).
-    Keeps (image, traced rays, seconds) in ``refs["queue"]`` for phase 9."""
+    Keeps (image, traced rays, seconds) in ``refs["queue"]`` for phase 9,
+    and the arguments of the image scatter of iteration SCATTER_PICK in
+    ``refs["scatter rows"]`` for phase 6b."""
     import tinyraytracing_tpu_torch.render as render_mod
     from tinyraytracing_tpu_torch import cli
-    from tinyraytracing_tpu_torch.ops import bvh, trace
+    from tinyraytracing_tpu_torch.integrator import fused_queue
+    from tinyraytracing_tpu_torch.ops import bvh
 
     seen, built = {}, []
     real = render_mod.render_fused_queue_chunked
@@ -802,15 +855,20 @@ def phase_cli(dev, out_dir, refs):
     render_mod.render_fused_queue_chunked = _timed_entry(
         "render_fused_queue_chunked", real, seen)
     bvh.attach_bvh = attach_timed
-    trace.reset_launch_counts()
+    mods = _kernel_modules()
+    for m in mods:
+        m.reset_launch_counts()
     try:
-        t0 = time.perf_counter()
-        rc = cli.main(argv)
-        wall = time.perf_counter() - t0
+        with _captured_scatter(fused_queue, "scatter_add_rows",
+                               (SCATTER_PICK,)) as kept:
+            t0 = time.perf_counter()
+            rc = cli.main(argv)
+            wall = time.perf_counter() - t0
     finally:
         render_mod.render_fused_queue_chunked = real
         bvh.attach_bvh = real_attach
-    launches = dict(trace.LAUNCHES)
+    launches = {k: v for m in mods for k, v in m.LAUNCHES.items()}
+    refs["scatter rows"] = kept
     log(f"phase 3: cli {' '.join(argv[:-2])} (spp cut from config 3's 512 to 4 "
         f"only to fit the smoke's time limit; the chunked queue driver) -> rc {rc}")
     # the numpy builder on the same triangles (in leaf order), timed here
@@ -823,12 +881,15 @@ def phase_cli(dev, out_dir, refs):
     log(f"  the CLI's BVH build (attach_bvh, builder {builder}) took "
         f"{' + '.join(f'{b[0]:.3f}' for b in built)} s of its wall; the numpy "
         f"builder alone on the same {len(v)} triangles {numpy_s:.3f} s")
-    img = _render_report("queue grid:100000", wall, seen, launches, real,
-                         ("trace_kernel",))
+    img, same = _render_report("queue grid:100000", wall, seen, launches, real,
+                               ("trace_kernel",))
     refs["queue"] = (img.cpu(), seen["rays"], seen["seconds"])
-    ok = (rc == 0 and all(b[1] == "native" for b in built)
+    # one image scatter per iteration, as many as kernel 1's launches
+    ok = (rc == 0 and all(b[1] == "native" for b in built) and same
           and launches["trace_closest"] > 0
           and launches["trace_occlusion"] > 0 and launches["trace_near"] == 0
+          and launches["scatter_rows"] == launches["trace_closest"]
+          and launches["scatter_fixed"] == 0 and len(kept) == 1
           and bool(torch.isfinite(img).all()) and float(img.mean()) > 0)
     return ok, launches
 
@@ -1002,12 +1063,15 @@ def _timed_entry(name, stats_fn, seen):
 def _render_report(label, wall, seen, counts, stats_fn, kernels):
     """Log one main-path render: wall and render time, rays/s, launches,
     and kernel and busy time from torch.profiler of the same render run
-    again; returns the image."""
+    again, whose image must be bitwise the first one's (same key, same
+    image); returns (the image, whether the rerun's is bitwise equal)."""
     a, k = seen["args"]
     peak = torch.cuda.max_memory_allocated()        # the render's, unprofiled
+    again = []
     n_dev, busy_ms, kern_ms, n_kern, mhz = _profiled(
-        lambda: stats_fn(*a, **k), kernels)
+        lambda: again.append(stats_fn(*a, **k)[0]), kernels)
     img, secs = seen["img"], seen["seconds"]
+    same = torch.equal(again[0], img)
     render_ms = 1e3 * secs
     log(f"  {label}: wall {wall:.2f}s; render {secs:.3f}s, {seen['rays']:.0f} "
         f"traced rays, {seen['rays'] / secs:.4g} rays/s; peak device memory "
@@ -1019,7 +1083,8 @@ def _render_report(label, wall, seen, counts, stats_fn, kernels):
         f"{100 * kern_ms / render_ms:.1f}% of the unprofiled render, device "
         f"busy {busy_ms:.1f} ms: the card idles "
         f"{100 * (1 - busy_ms / render_ms):.0f}%; {_mhz(mhz)} after it")
-    return img
+    log(f"  the same key again: image bitwise the first render's: {same}")
+    return img, same
 
 
 def phase_cli_persistent(dev, out_dir, refs):
@@ -1049,10 +1114,10 @@ def phase_cli_persistent(dev, out_dir, refs):
     counts = dict(trace.LAUNCHES)
     log(f"phase 3c: cli {' '.join(argv[:-2])} (auto: the persistent renderer, "
         f"4 epochs of 262,144 lanes) -> rc {rc}")
-    img = _render_report("persistent cornell", wall, seen, counts,
-                         render_fused_stats, ("trace_kernel",))
+    img, same = _render_report("persistent cornell", wall, seen, counts,
+                               render_fused_stats, ("trace_kernel",))
     refs["fused"] = (img.cpu(), seen["rays"], seen["seconds"])
-    ok = (rc == 0 and counts["trace_closest"] > 0 and counts["trace_near"] == 0
+    ok = (rc == 0 and same and counts["trace_closest"] > 0 and counts["trace_near"] == 0
           and counts["trace_occlusion"] == 0 and tuple(img.shape) == (1024, 1024, 3)
           and bool(torch.isfinite(img).all()) and float(img.mean()) > 0)
     return ok
@@ -1089,10 +1154,10 @@ def phase_near_queue(dev):
         finally:
             render_mod.render_fused_queue_chunked = real
         launches[order] = dict(trace.LAUNCHES)
-        img = _render_report(order, wall, seen, launches[order], real,
-                             ("trace_kernel", "packet_dirs_kernel"))
+        img, same = _render_report(order, wall, seen, launches[order], real,
+                                   ("trace_kernel", "packet_dirs_kernel"))
         imgs[order] = img.reshape(cam.height, cam.width, 3).cpu()
-        ok &= bool(torch.isfinite(img).all()) and float(img.mean()) > 0
+        ok &= same and bool(torch.isfinite(img).all()) and float(img.mean()) > 0
     a, b = imgs["near"], imgs["preorder"]
     close = torch.isclose(a, b, rtol=1e-4, atol=1e-5).all(dim=-1)
     mean_rel = abs(float(a.mean()) - float(b.mean())) / float(b.mean())
@@ -1171,8 +1236,8 @@ def phase_persistent_vs_persistent(dev):
 def phase_resume(dev, tmp):
     """Phase 5: the chunked queue render of grid:6000 (64x64, 4 spp, 4096
     lanes) with a snapshot after every chunk, interrupted after three
-    chunks and resumed, against the one-shot render: within the float-add
-    rounding of the scatter's atomics, the same ray count, the resume
+    chunks and resumed, against the one-shot render: bitwise (the image
+    scatter adds in a fixed order), the same ray count, the resume
     continuing from the snapshot, and the snapshot removed at the end."""
     import os
 
@@ -1208,15 +1273,14 @@ def phase_resume(dev, tmp):
         scene, cam, key, cfg, 4, resume=True,
         progress=lambda it, counter, seconds: then.append(it), **kw)
     cleared = not os.path.exists(path)
-    close = torch.isclose(got, one, rtol=1e-5, atol=1e-7).all(dim=-1)
+    same = torch.equal(got, one)
     err = float((got - one).abs().max())
     log(f"phase 5: chunked grid:6000 64x64 @ 4 spp, 4096 lanes: interrupted "
         f"after iterations {first} (snapshot written: {saved}), resumed at "
-        f"{then[0]} of {then[-1]} iterations; {int((~close).sum())} of "
-        f"{close.numel()} pixels outside rtol 1e-5/atol 1e-7 of the one-shot "
-        f"render (max abs diff {err:.3g}); rays {float(rays2):.0f} vs "
+        f"{then[0]} of {then[-1]} iterations; bitwise the one-shot render: "
+        f"{same} (max abs diff {err:.3g}); rays {float(rays2):.0f} vs "
         f"{float(rays):.0f}; snapshot removed: {cleared}")
-    return (saved and cleared and then[0] > first[1] and bool(close.all())
+    return (saved and cleared and then[0] > first[1] and same
             and float(rays2) == float(rays))
 
 
@@ -1278,17 +1342,19 @@ def _loss_and_grads(scene, cam, fields, cfg, key, target, counts=None,
     return loss.detach(), {f: getattr(p, f).grad for f in fields}
 
 
-def _profile_loss(label, run, kernel, launches_ok):
+def _profile_loss(label, run, kernel, launches_ok, repeat=True):
     """One main-path run of a loss's forward + backward (``run(counts)``
     records the launches of each in ``counts``): warmed once, timed alone
     with its peak memory, then run again under torch.profiler. Logs the
     seconds, loss, peak memory, launches, device ops, busy/idle share, the
     device time of the kernels whose name holds ``kernel``, the sorted
-    ``indexing_backward`` kernels and the top three device ops. Returns
-    (ok, seconds, {"forward": launches, "backward": launches}): ok holds
-    a finite positive loss, finite non-zero gradients and
-    ``launches_ok(forward, backward)``."""
-    run()                                  # warm: allocator, records
+    ``indexing_backward`` kernels, the top three device ops, and whether
+    the timed run's loss and gradients are bitwise the warm run's (the
+    same key). Returns (ok, seconds, {"forward": launches, "backward":
+    launches}): ok holds a finite positive loss, finite non-zero
+    gradients, ``launches_ok(forward, backward)`` and, with ``repeat``,
+    the bitwise rerun."""
+    loss0, grads0 = run()                  # warm: allocator, records
     counts = {}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1296,6 +1362,9 @@ def _profile_loss(label, run, kernel, launches_ok):
     loss, grads = run(counts)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
+    same = torch.equal(loss, loss0) and all(torch.equal(grads[f], grads0[f])
+                                            for f in grads)
+    del loss0, grads0
     peak = torch.cuda.max_memory_allocated()
     events, mhz = _device_events(run)
     ms = 1e3 * secs
@@ -1316,10 +1385,12 @@ def _profile_loss(label, run, kernel, launches_ok):
         f"{sum(sorted_bw) / 1e3:.2f} ms; {_mhz(mhz)} after it")
     log("    the most device time: " + "; ".join(
         f"{name[:60]} {t:.1f} ms" for name, t in _top_ops(events)))
+    log(f"    the same key again: loss and gradients bitwise the warm run's: "
+        f"{same}{'' if repeat else ' (logged, not required)'}")
     ok = (bool(torch.isfinite(loss)) and float(loss) > 0
           and all(bool(torch.isfinite(g).all()) and float(g.abs().sum()) > 0
                   for g in grads.values())
-          and launches_ok(fwd, bwd))
+          and launches_ok(fwd, bwd) and (same or not repeat))
     return ok, secs, counts
 
 
@@ -1344,9 +1415,11 @@ def _diff_report(label, scene, cam, fields, cfg, key):
         f"bounces' recompute)", run, "trace_kernel",
         lambda fwd, bwd: (fwd["trace_closest"] > 0 and fwd["trace_occlusion"] > 0
                           and bwd["trace_closest"] > 0
+                          and bwd["scatter_fixed"] > 0
+                          and fwd["scatter_fixed"] == 0
                           and all(c[k] == 0 for c in (fwd, bwd) for k in
                                   ("trace_near", "bvh_intersect",
-                                   "slot_intersect"))))
+                                   "slot_intersect", "scatter_rows"))))
     with torch.no_grad():
         s2, c2 = apply_params(scene, cam,
                               SceneParams.init_from(scene, cam, *fields))
@@ -1361,10 +1434,12 @@ def _diff_report(label, scene, cam, fields, cfg, key):
     return ok, counts
 
 
-def phase_diff(dev):
+def phase_diff(dev, refs):
     """Phase 6: the fast differentiable path (``diff.fast``) on the card,
     at BASELINE config 4's scene: ``render_loss_fast`` forward + backward
-    on cornell 512x512 in kd + vertex_offset; four ``make_train_step``
+    on cornell 512x512 in kd + vertex_offset (its gradients repeat bitwise;
+    every cotangent scatter of one more run kept in ``refs["scatter
+    fixed"]`` for phase 6b); four ``make_train_step``
     steps there in kd; one forward + backward in vertex_offset on
     grid:100000 512x512 (a refit of its tree every call), and that
     refit's own time; then the gradients on the card against the CPU's
@@ -1377,6 +1452,7 @@ def phase_diff(dev):
     )
     from tinyraytracing_tpu_torch.diff.refit import refit_bvh
     from tinyraytracing_tpu_torch.models.procedural import cornell_box, quad_grid
+    from tinyraytracing_tpu_torch.ops import lookup
     from tinyraytracing_tpu_torch.ops.bvh import attach_bvh
     from tinyraytracing_tpu_torch.ops.rng import master_key_data
 
@@ -1387,6 +1463,11 @@ def phase_diff(dev):
     scene = attach_bvh(scene, cfg)
     ok, counts = _diff_report("cornell 512x512", scene, cam,
                               ("kd", "vertex_offset"), cfg, key)
+    # every cotangent scatter of one more forward + backward, for phase 6b
+    with _captured_scatter(lookup, "scatter_add_rows_fixed") as kept:
+        _loss_and_grads(scene, cam, ("kd", "vertex_offset"), cfg, key,
+                        torch.zeros(512, 512, 3, device=dev))
+    refs["scatter fixed"] = kept
 
     # Adam in kd: on the cornell box a vertex step beyond the tie band
     # flips the emissive tie-break of the light, coplanar with the ceiling
@@ -1421,22 +1502,6 @@ def phase_diff(dev):
     log(f"  refit_bvh of grid:100000's tree: {dev_ms:.3f} ms device (the sum "
         f"of its launches under torch.profiler over 10 calls, / 10), "
         f"{host_ms:.3f} ms host-inclusive per call; {_mhz(mhz)} after it")
-
-    # the backward's scatter of cotangent rows at the path's shapes (one
-    # cotangent row per lane of a bounce): index_add_, which the port's
-    # gathers (ops.lookup.gather_rows) get from index_select, against the
-    # sorting index_put_ that a plain tensor[rows] gather gets
-    R = 512 * 512
-    for T in (4, 32, grid.num_triangles):
-        rows = torch.randint(0, T, (R,), device=dev)
-        g = torch.randn(R, 3, device=dev)
-        zero = torch.zeros(T, 3, device=dev)
-        put = _host_ms(lambda: zero.clone().index_put_((rows,), g,
-                                                       accumulate=True))
-        add = _host_ms(lambda: zero.clone().index_add_(0, rows, g))
-        log(f"  scatter of {R} cotangent rows into a {T}-row table: "
-            f"index_put_(accumulate) {put:.4f} ms, index_add_ {add:.4f} ms "
-            f"(CUDA events around 20 calls)")
 
     # the card against the CPU at 32x32
     small, scam = cornell_box(32, 32, device="cpu")
@@ -1498,12 +1563,240 @@ def _scan_loss_report(dev, key):
     ok, _, counts = _profile_loss(
         f"render_loss (scan, bvh_pallas) cornell 512x512, max_depth "
         f"{cfg.max_depth}, {DIFF_SPP} spp, params {'+'.join(SCAN_LOSS_FIELDS)} "
-        f"(kernel 4 expected {want} + 0)", run, "bvh_intersect",
+        f"(kernel 4 expected {want} + 0; the cotangent scatter in the "
+        f"backward)", run, "bvh_intersect",
         lambda fwd, bwd: (fwd["bvh_intersect"] == want
                           and all(v == 0 for k, v in fwd.items()
                                   if k != "bvh_intersect")
-                          and all(v == 0 for v in bwd.values())))
+                          and bwd["scatter_fixed"] > 0
+                          and all(v == 0 for k, v in bwd.items()
+                                  if k != "scatter_fixed")))
     return ok, _summed(counts)
+
+
+# ---------------------------------------------------------------------------
+# phase 6b: the scatter kernels (csrc/scatter_add.cu) on the main paths' calls
+# ---------------------------------------------------------------------------
+
+# a spin kernel's cycles (torch.cuda._sleep): ~20 ms at 1,980 MHz, longer
+# than the host takes to queue a timed set of calls behind it
+SPIN_CYCLES = 40_000_000
+
+
+def _device_total_ms(fn, n=20):
+    """(device ms of one call of ``fn``, SM clock MHz after): CUDA events
+    around ``n`` back-to-back calls queued behind a spin kernel, after one
+    untimed call and a warm-up load. The host queues the calls while the card spins, so the
+    events time the card's own work: every kernel of a call (a sort, a
+    fill, the levels) and the gaps between them, with no record dropped
+    (torch.profiler drops some). Where the host took longer to queue them
+    than the spin lasted, the log says so: the time is then partly the
+    host's."""
+    fn()                          # the allocator's blocks, the libraries
+    _warm()
+    ev = lambda: torch.cuda.Event(enable_timing=True)
+    s0, s1, e0, e1 = ev(), ev(), ev(), ev()
+    s0.record()
+    torch.cuda._sleep(SPIN_CYCLES)
+    s1.record()
+    e0.record()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    e1.record()
+    torch.cuda.synchronize()
+    spin_ms = s0.elapsed_time(s1)
+    if host_ms > spin_ms:
+        log(f"    (the host took {host_ms:.1f} ms to queue {n} calls, the spin "
+            f"lasted {spin_ms:.1f} ms: the time is partly the host's)")
+    return e0.elapsed_time(e1) / n, _sm_clock()
+
+
+def _bits_equal(a, b):
+    return torch.equal(a.contiguous().view(torch.int32).cpu(),
+                       b.contiguous().view(torch.int32).cpu())
+
+
+def _scatter_rows_case(label, dev, args, iterations):
+    """The image scatter of one main-path iteration (``args``: its CPU
+    copies): the kernel bitwise its plain version and the CPU's index_add_
+    on the rows below ``keep``; device time per call (the sort included)
+    against the sort alone, index_add_ (atomics) and index_put_ with
+    accumulate (the deterministic library path), each into the same
+    image. Returns (ok, case dict)."""
+    from tinyraytracing_tpu_torch.ops import scatter as sc
+
+    dst0, dim, rows, src, keep = args
+    cpu = dst0.clone().index_add_(dim, rows, src)
+    dst0, rows, src = dst0.to(dev), rows.to(dev), src.to(dev)
+    got = sc.scatter_add_rows(dst0.clone(), dim, rows, src, keep)
+    plain = sc.scatter_add_rows_plain(dst0.clone(), dim, rows, src, keep)
+    part = (slice(None), slice(0, keep)) if dim == 1 else (slice(0, keep),)
+    same = _bits_equal(got[part], plain[part]) and _bits_equal(got[part], cpu[part])
+    err = float((got[part] - plain[part]).abs().max())
+    buf = dst0.clone()
+    idx = ((torch.arange(dst0.shape[0], device=dev)[:, None], rows[None, :])
+           if dim == 1 else (rows,))
+    ms, mhz = _device_total_ms(lambda: sc.scatter_add_rows(buf, dim, rows, src, keep))
+    host = _host_ms(lambda: sc.scatter_add_rows(buf, dim, rows, src, keep))
+    sort_ms, _ = _device_total_ms(lambda: torch.sort(rows.to(torch.int32), stable=True))
+    add_ms, _ = _device_total_ms(lambda: buf.index_add_(dim, rows, src))
+    put_ms, _ = _device_total_ms(lambda: buf.index_put_(idx, src, accumulate=True))
+    plain_ms = _events_ms(lambda: sc.scatter_add_rows_plain(buf, dim, rows, src,
+                                                            keep), 3)
+    n, C = rows.numel(), src.shape[1 - dim]
+    use = (rows >= 0) & (rows < keep)
+    n_kept, D = int(use.sum()), int(torch.unique(rows[use]).numel())
+    # rows and values read once; each row added into read and written once
+    bound, by = _bound(C * n_kept, rows.element_size() * n + 4 * C * n + 8 * C * D)
+    log(f"  {label}: {n:,} lanes into {tuple(dst0.shape)} along dim {dim}, "
+        f"{n_kept:,} kept into {D:,} rows: bitwise its plain version and the "
+        f"CPU's index_add_: {same} (max abs diff {err:.3g}); device "
+        f"{ms:.4f} ms a call (host-inclusive {host:.4f}), of it the stable "
+        f"sort {sort_ms:.4f}; index_add_ {add_ms:.4f}, index_put_ "
+        f"(accumulate) {put_ms:.4f}; plain {plain_ms:.2f}; bound {bound:.5f} "
+        f"({by}); x {iterations} iterations: {ms * iterations:.2f} ms against "
+        f"index_add_'s {add_ms * iterations:.2f}; {_mhz(mhz)} after it")
+    return same, dict(ms=ms, device_ms=ms, host_ms=host, sort_ms=sort_ms,
+                      library_ms=add_ms, index_put_ms=put_ms, plain_ms=plain_ms,
+                      bound_ms=bound, bound_by=by, max_abs_err=err,
+                      iterations=iterations, sm_mhz=mhz)
+
+
+def phase_scatter(dev, refs, reports, counts):
+    """Phase 6b: both scatter kernels on copies of their main paths' own
+    calls, held bitwise to their plain versions on the card (and to the
+    CPU's), timed against the library calls they replace: the image
+    scatter of phase 3's queue render and of phase 8's ``render_regen``
+    (iteration SCATTER_PICK; ``counts``: their iterations), and every
+    cotangent scatter of one phase-6 forward + backward of cornell
+    512x512 in kd + vertex_offset, alone and summed over the call."""
+    from tinyraytracing_tpu_torch.ops import scatter as sc
+
+    log("phase 6b: the fixed-order scatter kernels (csrc/scatter_add.cu, no "
+        "TPU counterpart) on the main paths' own calls; device time per call "
+        "from CUDA events around calls queued behind a spin kernel")
+    ok = True
+    rep = {"cases": {}}
+    for key, label, its in (
+            ("scatter rows", "queue image, grid:100000 1024x1024, 4 spp",
+             counts["queue"]),
+            ("scatter rows regen", "render_regen image, grid:100000 "
+             "1024x1024, 1 spp", counts["regen"])):
+        (args,) = refs[key]
+        same, case = _scatter_rows_case(f"{label}, iteration {SCATTER_PICK}",
+                                        dev, args, its)
+        ok &= same
+        rep["cases"][label] = case
+        if key == "scatter rows":              # the main path's
+            rep.update(case)
+    reports["scatter_rows"] = rep
+
+    calls = [(n, r.to(dev), g.to(dev)) for n, r, g in refs["scatter fixed"]]
+    errs, same = [], True
+    for n_rows, rows, g in calls:
+        got = sc.scatter_add_rows_fixed(n_rows, rows, g)
+        plain = sc.scatter_add_rows_fixed_plain(n_rows, rows, g)
+        same &= _bits_equal(got, plain)
+        errs.append(float((got - plain).abs().max()))
+    # the call with the longest runs (the most rows into the fewest) on
+    # the CPU too: the plain version is the same adds on any device
+    n_rows, rows, g = max(calls, key=lambda c: c[1].numel() / c[0])
+    cpu_same = _bits_equal(sc.scatter_add_rows_fixed(n_rows, rows, g),
+                           sc.scatter_add_rows_fixed_plain(n_rows, rows.cpu(),
+                                                           g.cpu()))
+    zeros = lambda n, g: torch.zeros((n, *g.shape[1:]), device=dev)
+    one = dict(
+        kernel=lambda: sc.scatter_add_rows_fixed(n_rows, rows, g),
+        index_add=lambda: zeros(n_rows, g).index_add_(0, rows, g),
+        index_put=lambda: zeros(n_rows, g).index_put_((rows,), g, accumulate=True))
+    t1 = {k: _device_total_ms(f)[0] for k, f in one.items()}
+    host = _host_ms(one["kernel"])
+    mhz = _sm_clock()
+    plain_ms = _events_ms(lambda: sc.scatter_add_rows_fixed_plain(n_rows, rows, g), 3)
+    n, C = rows.numel(), g[0].numel()
+    D = int(torch.unique(rows).numel())
+    bound, by = _bound(C * (n - D), rows.element_size() * n + 4 * C * n
+                       + 4 * C * n_rows)
+    every = dict(
+        kernel=lambda: [sc.scatter_add_rows_fixed(n, r, x) for n, r, x in calls],
+        index_add=lambda: [zeros(n, x).index_add_(0, r, x) for n, r, x in calls],
+        index_put=lambda: [zeros(n, x).index_put_((r,), x, accumulate=True)
+                           for n, r, x in calls])
+    tall = {k: _device_total_ms(f, 2)[0] for k, f in every.items()}
+    shapes = sorted({(c[1].numel(), c[0], c[2][0].numel()) for c in calls})
+    log(f"  cotangents: {len(calls)} scatters in one cornell 512x512 forward + "
+        f"backward (rows, table rows, channels: {shapes}); each bitwise its "
+        f"plain version on the card: {same} (max abs diff {max(errs):.3g}); "
+        f"the call of {n:,} rows into {n_rows} ({C} channels) also on the "
+        f"CPU: {cpu_same}")
+    log(f"    that call: kernel {t1['kernel']:.4f} ms device (host-inclusive "
+        f"{host:.4f}), index_add_ {t1['index_add']:.4f}, index_put_ "
+        f"(accumulate) {t1['index_put']:.4f}, plain {plain_ms:.2f}; bound "
+        f"{bound:.5f} ({by}); {_mhz(mhz)} after it")
+    log(f"    all {len(calls)} of them: kernel {tall['kernel']:.3f} ms device, "
+        f"index_add_ {tall['index_add']:.3f}, index_put_ {tall['index_put']:.3f}")
+    ok &= same and cpu_same
+    reports["scatter_fixed"] = dict(
+        ms=t1["kernel"], device_ms=t1["kernel"], host_ms=host,
+        library_ms=t1["index_add"], index_put_ms=t1["index_put"],
+        plain_ms=plain_ms, bound_ms=bound, bound_by=by, max_abs_err=max(errs),
+        sm_mhz=mhz, cases={"every cotangent scatter of one forward + backward":
+                           dict(calls=len(calls), ms=tall["kernel"],
+                                library_ms=tall["index_add"],
+                                index_put_ms=tall["index_put"])})
+    log(f"phase 6b: {'ok' if ok else 'FAILED'}")
+    return ok
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the inverse-rendering examples
+# ---------------------------------------------------------------------------
+
+EXAMPLE_SIZE, EXAMPLE_STEPS = 32, 8
+
+
+def phase_examples(dev):
+    """Phase 10: both inverse-rendering examples
+    (``tinyraytracing_tpu_torch/examples/``) on the card at EXAMPLE_SIZE
+    for EXAMPLE_STEPS steps, each with its launches counted: the loss
+    falls and the albedo error ends below where it started."""
+    from tinyraytracing_tpu_torch.examples import inverse_demo, inverse_rendering
+    from tinyraytracing_tpu_torch.models.procedural import cornell_box
+
+    kd = cornell_box(8, 8, device="cpu")[0]
+    obs = ~kd.mtl_emissive
+    kd = kd.kd
+    log(f"phase 10: the inverse-rendering examples, cornell "
+        f"{EXAMPLE_SIZE}x{EXAMPLE_SIZE}, {EXAMPLE_STEPS} steps")
+    ok = True
+    runs = (("inverse_rendering (scan render_loss, mxu, plain steps)",
+             lambda: inverse_rendering.recover_albedo(
+                 EXAMPLE_STEPS, EXAMPLE_SIZE, device=dev, print_every=0),
+             float((kd * 0.4 + 0.25 - kd).abs()[obs].max()),
+             ("scatter_fixed",)),
+            ("inverse_demo (render_loss_fast, Adam)",
+             lambda: inverse_demo.recover_albedo(
+                 EXAMPLE_STEPS, EXAMPLE_SIZE, device=dev, print_every=0)[0],
+             float((0.5 - kd).abs()[obs].max()),
+             ("trace_closest", "trace_occlusion", "scatter_fixed")))
+    for label, run, start, kernels in runs:
+        t0 = time.perf_counter()
+        steps, counts = _counted(run)
+        secs = time.perf_counter() - t0
+        losses = [x["loss"] for x in steps]
+        errs = [x["kd_max_err"] for x in steps]
+        good = (all(map(math.isfinite, losses)) and losses[-1] < losses[0]
+                and errs[-1] < start and all(counts[k] > 0 for k in kernels))
+        log(f"  {label}: {secs:.2f} s; losses {losses[0]:.6g} -> "
+            f"{losses[-1]:.6g}; albedo error {start:.4f} at the start, "
+            f"{errs[-1]:.4f} at the end; launches "
+            f"{ {k: v for k, v in counts.items() if v} }: "
+            f"{'ok' if good else 'FAILED'}")
+        ok &= good
+    log(f"phase 10: {'ok' if ok else 'FAILED'}")
+    return ok
 
 
 # ---------------------------------------------------------------------------
@@ -1616,7 +1909,9 @@ def phase_edge(dev, reports):
                               and bwd["bvh_intersect"] == 0
                               and fwd["slot_intersect"] == 0
                               and bwd["slot_intersect"] == 0
-                              and fwd["trace_closest"] > 0))
+                              and fwd["trace_closest"] > 0
+                              and bwd["scatter_fixed"] > 0),
+            repeat=False)
         ok &= ok_n
         if n == EDGE_SAMPLES[-1]:
             edge_launches = _summed(counts)
@@ -1669,15 +1964,23 @@ def _oracle_checks(label, fn, scene, cam, cfg, cpu_cfg):
 ORACLE_PICKS = (0, 1, 40, 41)
 
 
-def _oracle_report(label, fn, kname, scene, cfg, reports):
+def _oracle_report(label, fn, kname, scene, cfg, reports, refs, scatters):
     """One main-path run of an oracle (``fn(stats)``): first one untimed run
     that warms the allocator and the scene's kernel records and keeps the
     kernel's ORACLE_PICKS dispatches, which go through the kernel and its
-    plain version; then one run timed alone with its launches counted,
-    then one under torch.profiler. Returns (ok, launches)."""
+    plain version (and, where ``scatters``, its image scatter of iteration
+    SCATTER_PICK, in ``refs["scatter rows regen"]`` for phase 6b); then one
+    run timed alone with its launches counted, whose image must be bitwise
+    the first run's, then one under torch.profiler. ``scatters``: one image
+    scatter per iteration, else none. Returns (ok, launches)."""
+    from tinyraytracing_tpu_torch.integrator import regen
+
     kind = "bvh" if kname == "bvh_intersect" else "slot"
-    with _captured_rays(kind, ORACLE_PICKS) as seen:
-        fn({})
+    with _captured_rays(kind, ORACLE_PICKS) as seen, _captured_scatter(
+            regen, "scatter_add_rows", (SCATTER_PICK,)) as kept:
+        img0, _ = fn({})
+    if scatters:
+        refs["scatter rows regen"] = kept
     ok = _main_path_rays_ok(f"{label.split(',')[0]}'s dispatches", scene,
                             kind, seen, ORACLE_PICKS, cfg, reports, "phase 8")
     del seen                               # out of the timed run's peak
@@ -1691,24 +1994,29 @@ def _oracle_report(label, fn, kname, scene, cfg, reports):
     peak = torch.cuda.max_memory_allocated()
     n_dev, busy_ms, kern_ms, n_kern, mhz = _profiled(lambda: fn({}), kname)
     ms, it, exact = 1e3 * secs, stats["iterations"], stats["rays"]
+    same = torch.equal(img, img0)
+    del img0
     log(f"  {label}: {secs:.3f} s (after one warm run), {it} iterations, traced "
         f"rays {float(rays):.0f} (float32) / {exact} (exact), "
         f"{exact / secs:.4g} rays/s; peak device memory {peak / 2**20:.1f} "
         f"MiB; image mean {float(img.mean()):.6g}")
-    log(f"    launches {counts} ({kname} expected 2 per iteration: {2 * it}); "
+    log(f"    the same key again: image bitwise the first run's: {same}")
+    log(f"    launches {counts} ({kname} expected 2 per iteration: {2 * it}"
+        f"{', scatter_rows 1 per iteration' if scatters else ''}); "
         f"under torch.profiler {n_dev} device ops ({n_dev / max(it, 1):.0f} per "
         f"iteration), {kname} {kern_ms:.2f} ms in {n_kern} recorded launches = "
         f"{100 * kern_ms / ms:.2f}% of the unprofiled run, device busy "
         f"{busy_ms:.1f} ms (idle {100 * (1 - busy_ms / ms):.0f}%); "
         f"{_mhz(mhz)} after it")
-    ok &= (bool(torch.isfinite(img).all()) and float(img.mean()) > 0
-           and counts[kname] == 2 * it
-           and all(v == 0 for k, v in counts.items() if k != kname)
+    want = {k: 0 for k in counts}
+    want.update({kname: 2 * it}, **({"scatter_rows": it} if scatters else {}))
+    ok &= (bool(torch.isfinite(img).all()) and float(img.mean()) > 0 and same
+           and counts == want
            and abs(float(rays) - exact) <= 1e-6 * exact * it)
-    return ok, counts[kname]
+    return ok, {k: v for k, v in counts.items() if v}
 
 
-def phase_oracles(dev, reports):
+def phase_oracles(dev, reports, refs):
     """Phase 8: ``render_regen`` on grid:100000 (leaf 8, the CLI's tree) at
     1024x1024, 1 spp, 131,072 lanes with intersector "auto" (kernel 4), and
     ``render_persistent`` on cornell 512x512, 4 spp, 262,144 lanes with
@@ -1732,7 +2040,7 @@ def phase_oracles(dev, reports):
     ok, n4 = _oracle_report(
         "render_regen grid:100000 1024x1024, 1 spp, 131,072 lanes, auto",
         lambda st: render_regen(grid, gcam, key, cfg, 1, lanes=131072, stats=st),
-        "bvh_intersect", grid, cfg, reports)
+        "bvh_intersect", grid, cfg, reports, refs, True)
     ok &= _oracle_checks("render_regen grid:100000", render_regen, grid, gcam,
                          cfg, cfg.replace(intersector="bvh_pallas"))
     pcfg = RenderConfig(intersector="pallas")
@@ -1741,11 +2049,11 @@ def phase_oracles(dev, reports):
         "render_persistent cornell 512x512, 4 spp, 262,144 lanes, pallas",
         lambda st: render_persistent(cornell, ccam, key, pcfg, 4, lanes=262144,
                                      stats=st),
-        "slot_intersect", cornell, pcfg, reports)
+        "slot_intersect", cornell, pcfg, reports, refs, False)
     ok &= ok_p and _oracle_checks("render_persistent cornell",
                                   render_persistent, cornell, ccam, pcfg, pcfg)
     log(f"phase 8: {'ok' if ok else 'FAILED'}")
-    return ok, {"bvh_intersect": n4, "slot_intersect": n5}
+    return ok, {k: n4.get(k, 0) + n5.get(k, 0) for k in {**n4, **n5}}
 
 
 # ---------------------------------------------------------------------------
@@ -2008,7 +2316,8 @@ def _p9_ranks(r, world, out):
             s2, c2, key, dcfg, DIFF_SPP, return_rays=True, pix_lo=r * per,
             n_pix_local=per)[1])
     if r == 0:
-        res["loss ref"] = loss_run(render_loss_fast)
+        res["loss ref"], res["loss ref counts"] = _counted(
+            lambda: loss_run(render_loss_fast))
     dist.barrier()
     mark("loss")
 
@@ -2067,11 +2376,12 @@ def _p9_nccl(r, world, out):
     mesh = pm.make_mesh()
     cpu = lambda x: tuple(map(cpu, x)) if isinstance(x, tuple) else x.cpu()
     res = {"backend": torch.distributed.get_backend(mesh.group)}
-    # spp 1: one path per pixel, so the image scatter adds each pixel once
-    # and the single-process image is exact, atomics or not
-    res["queue"] = cpu((pm.render_queue_sharded(scene, cam, key, cfg, 1, mesh,
-                                                lanes=4096),
-                        render_fused_queue(scene, cam, key, cfg, 1, lanes=4096)))
+    # spp 4: several paths of a pixel finish in one iteration, and the
+    # image scatter adds them in a fixed order
+    res["queue"] = cpu((pm.render_queue_sharded(scene, cam, key, cfg, P9_SPP,
+                                                mesh, lanes=4096),
+                        render_fused_queue(scene, cam, key, cfg, P9_SPP,
+                                           lanes=4096)))
     res["fused"] = cpu((pm.render_fused_sharded(scene, cam, key, cfg, 2, mesh,
                                                 lanes=4096),
                         render_fused_stats(scene, cam, key, cfg, 2, lanes=4096)))
@@ -2123,7 +2433,7 @@ def phase_sharded(dev, refs, backend="gloo"):
     rank); ``render_sharded`` on grid:100000 (kernel 4) within 10% of phase
     3b's mean, and on cornell 64x64 against the CPU (phase 4b's bounds).
     (b) One NCCL rank in a process of its own, bitwise its
-    single-process queue and fused calls. With ``backend="nccl"``
+    single-process queue and fused calls and loss gradients. With ``backend="nccl"``
     (``--four-cards``) the four ranks are NCCL ranks on four cards, one
     each, and the same checks and timings run. Every collective
     runs on the tensors' own device; the harness stages nothing. Returns
@@ -2176,7 +2486,8 @@ def phase_sharded(dev, refs, backend="gloo"):
                         for c, x in zip(counts, runs)]
             else:
                 want = [_p9_zero(c, trace_closest=x["finals"][-1][0],
-                                 trace_occlusion=x["finals"][-1][0])
+                                 trace_occlusion=x["finals"][-1][0],
+                                 scatter_rows=x["finals"][-1][0])
                         for c, x in zip(counts, runs)]
                 exact = [x["finals"][-1][1] for x in runs]
                 log(f"    each rank's lanes' counts summed in float64: {exact}"
@@ -2220,7 +2531,9 @@ def phase_sharded(dev, refs, backend="gloo"):
         f"{[x['kept'] for x in rz]}, removed {[x['cleared'] for x in rz]}); "
         f"resumed and run-through images within rtol 1e-5 / atol 1e-7 of "
         f"the one-shot render_queue_sharded ({one['secs']:.3f} s): "
-        f"{bool(close.all())}, {bool(close_w.all())}; rays {rz[0]['rays']:.0f}, "
+        f"{bool(close.all())}, {bool(close_w.all())} (bitwise: "
+        f"{torch.equal(rz[0]['img'], one['img'])}, "
+        f"{torch.equal(whole['img'], one['img'])}); rays {rz[0]['rays']:.0f}, "
         f"{whole['rays']:.0f}, {one['rays']:.0f}")
     ok &= (all(x["kept"] and x["cleared"] for x in rz)
            and rz[0]["rest"][0] > rz[0]["part"][-1]
@@ -2231,10 +2544,12 @@ def phase_sharded(dev, refs, backend="gloo"):
     lr = [res[i]["loss"] for i in range(P9_WORLD)]
     ref_loss, ref_grads = res[0]["loss ref"]
     # forward and the backward's recompute: a closest-hit and a shadow
-    # dispatch per bounce and pass, each
+    # dispatch per bounce and pass, each; as many cotangent scatters as
+    # the single-process loss (each rank gathers from the same tables)
     n = 2 * DIFF_DEPTH * DIFF_SPP
-    want = [_p9_zero(x["counts"], trace_closest=n, trace_occlusion=n)
-            for x in lr]
+    n_fixed = res[0]["loss ref counts"]["scatter_fixed"]
+    want = [_p9_zero(x["counts"], trace_closest=n, trace_occlusion=n,
+                     scatter_fixed=n_fixed) for x in lr]
     ok &= _p9_launch_ok("loss (forward + recompute)", [x["counts"] for x in lr],
                         want)
     add([x["counts"] for x in lr])
@@ -2306,17 +2621,14 @@ def phase_sharded(dev, refs, backend="gloo"):
     f_same = torch.equal(fi, fi1) and torch.equal(fr, fr1)
     (l, gk, gv), (l1, gk1, gv1) = nc["loss"], nc["loss ref"]
     lrel = abs(float(l) - float(l1)) / abs(float(l1))
-    lclose = (torch.allclose(gk, gk1, rtol=2e-4, atol=1e-6)
-              and torch.allclose(gv, gv1, rtol=2e-4, atol=1e-6))
+    g_same = torch.equal(gk, gk1) and torch.equal(gv, gv1)
     log(f"  one {nc['backend']} rank, cornell 64x64: render_queue_sharded "
-        f"(1 spp) bitwise render_fused_queue: {q_same}; render_fused_sharded "
-        f"bitwise render_fused: {f_same}; render_loss_fast_sharded's loss "
-        f"{lrel:.2g} from render_loss_fast's (bound 1e-5; a sum, then a "
-        f"division, against torch.mean) and its gradients within rtol 2e-4 / "
-        f"atol 1e-6: {lclose} (the cotangent scatters' atomics add in no "
-        f"fixed order, so no two runs of render_loss_fast are bitwise equal "
-        f"on the card)")
-    ok &= nc["backend"] == "nccl" and q_same and f_same and lrel <= 1e-5 and lclose
+        f"({P9_SPP} spp) bitwise render_fused_queue: {q_same}; "
+        f"render_fused_sharded bitwise render_fused: {f_same}; "
+        f"render_loss_fast_sharded's loss {lrel:.2g} from render_loss_fast's "
+        f"(bound 1e-5; a sum, then a division, against torch.mean) and its "
+        f"gradients bitwise render_loss_fast's: {g_same}")
+    ok &= nc["backend"] == "nccl" and q_same and f_same and lrel <= 1e-5 and g_same
     log(f"phase 9: {'ok' if ok else 'FAILED'} in "
         f"{time.perf_counter() - t_phase:.1f} s")
     return ok, launches
@@ -2839,16 +3151,24 @@ def main(argv=None) -> int:
     ok4 = phase_render_vs_render(dev)
     ok4b = phase_scan_vs_scan(dev)
     ok4c = phase_persistent_vs_persistent(dev)
-    ok6, diff_launches = phase_diff(dev)
+    ok6, diff_launches = phase_diff(dev, refs)
     t0 = time.perf_counter()
     ok7, edge_launches = phase_edge(dev, reports)
     diff_launches.update(edge_launches)
     t7 = time.perf_counter()
-    ok8, oracle_launches = phase_oracles(dev, reports)
+    ok8, oracle_launches = phase_oracles(dev, reports, refs)
     log(f"phases 7 and 8 took {t7 - t0:.1f} s and "
         f"{time.perf_counter() - t7:.1f} s")
+    t0 = time.perf_counter()
+    ok6b = phase_scatter(dev, refs, reports, {
+        "queue": launches["scatter_rows"],
+        "regen": oracle_launches.get("scatter_rows", 0)})
     for k, n in oracle_launches.items():
         launches[k] = launches.get(k, 0) + n
+    # the cotangent scatter's main path is the differentiable one
+    launches["scatter_fixed"] += diff_launches["backward"]["scatter_fixed"]
+    ok10 = phase_examples(dev)
+    log(f"phases 6b and 10 took {time.perf_counter() - t0:.1f} s")
     ok9, sharded_launches = phase_sharded(dev, refs)
     for k, n in sharded_launches.items():
         launches[k] = launches.get(k, 0) + n
@@ -2870,8 +3190,9 @@ def main(argv=None) -> int:
               "cli scan render": ok3b, "cli persistent render": ok3c,
               "near queue render": ok3d, "render vs render": ok4,
               "scan vs scan": ok4b, "persistent vs persistent": ok4c,
-              "chunked resume": ok5, "diff": ok6, "edge terms": ok7,
-              "oracles": ok8, "sharded": ok9}
+              "chunked resume": ok5, "diff": ok6, "scatter kernels": ok6b,
+              "edge terms": ok7, "oracles": ok8, "sharded": ok9,
+              "examples": ok10}
     log("phases: " + ", ".join(f"{k} {'ok' if v else 'FAILED'}"
                                for k, v in phases.items())
         + f"; {time.perf_counter() - t_start:.0f} s in all")

@@ -341,10 +341,13 @@ def test_fast_loss_fd_albedo(cornell_fast):
 
 
 # the eye steps by 1.0, not 0.1: on this scene the loss's slope in the
-# eye's x and y is ~1% of its slope in z, and a 0.1 step reads an extra
-# ~5e-7 of slope in x and y (as does a 0.01 step) that steps of 1.0 and
-# 3.0 do not; no visibility flip shows in the pixels, and the cause is
-# not traced
+# eye's x and y is ~1% of its slope in z, and the central difference of
+# the float32 loss at steps of 0.1 and 0.01 reads an extra 3e-7 to 3e-6 of
+# slope (in z too) that steps of 1.0 and 3.0 do not. The JAX package's
+# render_loss_fast reads the same extra slope on the same scene, with
+# gradients equal to the port's to four digits (python -m
+# tests.torch_eye_fd prints both): it is the float32 estimator's, not a
+# fault of the port's eye gradient
 EYE_EPS = 1.0
 
 

@@ -14,7 +14,9 @@ saves the fast differentiable path's image (``render_diff``) and the
 gradients of ``render_loss_fast`` and of the scan renderer's
 ``render_loss`` in ``DIFF_FIELDS`` (tests/test_torch_diff.py); one written
 ``regen:<scene>`` renders the regeneration oracles' ``REGEN_CASES``
-(tests/test_torch_regen.py); one written ``sharded:<scene>[:<kind>]``
+(tests/test_torch_regen.py); one written ``example:<rendering|demo>:<jax|port>``
+runs one side of one inverse-rendering example's first steps
+(tests/test_torch_examples.py); one written ``sharded:<scene>[:<kind>]``
 renders ``SHARDED_CASES`` (those of renderer ``<kind>``: scan, fused,
 queue, or "slices" for the slices alone) with the JAX package's sharded renderers on a 2x2 mesh
 of its first four devices (run it with
@@ -388,6 +390,91 @@ def sharded_images(name, images, kind=None):
         images[f"slice-{tag}-rays-port"] = np.float32(rays)
 
 
+# the inverse-rendering examples (tests/test_torch_examples.py): the JAX
+# example's own calls (examples/inverse_rendering.py, examples/
+# inverse_demo.py) and the port example's function, EXAMPLE_STEPS steps at
+# EXAMPLE_SIZE; each side of each example in a process of its own
+EXAMPLE_SIZE, EXAMPLE_STEPS = 16, 2
+
+
+def _jax_inverse_rendering():
+    """examples/inverse_rendering.py's descent: [(loss, kd max err)]."""
+    from tinyraytracing_tpu.diff.inverse import SceneParams as JParams
+    from tinyraytracing_tpu.diff.inverse import render_loss as jax_render_loss
+
+    spp, lr = 4, 5.0
+    cfg = JConfig(intersector="mxu", max_depth=4, tri_chunk=64)
+    scene, cam = jproc.cornell_box(width=EXAMPLE_SIZE, height=EXAMPLE_SIZE)
+    key = jax.random.PRNGKey(0)
+    target = jax_scan_render(scene, cam, key, cfg, spp)
+    kd_true = scene.kd
+    kd = kd_true * 0.4 + 0.25
+    observable = ~np.asarray(scene.mtl_emissive)
+    g_fn = jax.jit(jax.value_and_grad(lambda kd, k: jax_render_loss(
+        JParams(kd=kd), scene, cam, k, target, cfg, spp)))
+    out = []
+    for _ in range(EXAMPLE_STEPS):
+        loss, g = g_fn(kd, key)
+        kd = kd - lr * g
+        out.append((float(loss), float(np.abs(np.asarray(kd - kd_true))[observable].max())))
+    return out
+
+
+def _jax_inverse_demo():
+    """examples/inverse_demo.py's Adam steps: [(loss, kd max err)]."""
+    import optax
+
+    from tinyraytracing_tpu.diff.inverse import SceneParams as JParams
+
+    cfg = JConfig(intersector="bvh", max_depth=4)
+    scene, cam = jproc.cornell_box(width=EXAMPLE_SIZE, height=EXAMPLE_SIZE)
+    scene = attach_bvh(scene, cfg)
+    key = jax.random.PRNGKey(0)
+    # jitted here (the example calls it eagerly): the losses come out
+    # bitwise the same, and the interpret-mode kernel is not dispatched
+    # op by op
+    target = jax.jit(jfast.render_diff, static_argnums=(3, 4))(
+        scene, cam, key, cfg, 4)
+    params = JParams(kd=jnp.full_like(scene.kd, 0.5))
+    opt = optax.adam(0.05)
+    state = opt.init(params)
+
+    @jax.jit
+    def step(params, state, key):
+        loss, g = jax.value_and_grad(jfast.render_loss_fast)(
+            params, scene, cam, key, target, cfg, 4)
+        updates, state = opt.update(g, state, params)
+        return optax.apply_updates(params, updates), state, loss
+
+    obs = ~scene.mtl_emissive
+    out = []
+    for i in range(EXAMPLE_STEPS):
+        params, state, loss = step(params, state, jax.random.fold_in(key, i))
+        out.append((float(loss), float(jnp.abs(params.kd - scene.kd)[obs].max())))
+    return out
+
+
+def example_arrays(name, images):
+    """``name`` = "<rendering|demo>:<jax|port>": that side of that
+    example, as (EXAMPLE_STEPS, 2) float64 [loss, kd max err]."""
+    from tinyraytracing_tpu_torch.examples import inverse_demo, inverse_rendering
+
+    example, side = name.split(":")
+    if side == "jax":
+        rows = (_jax_inverse_rendering if example == "rendering"
+                else _jax_inverse_demo)()
+    else:
+        # one thread: a 16x16 render's tensors gain nothing from more, and
+        # the four processes run beside the test suite's own workers
+        torch.set_num_threads(1)
+        mod = inverse_rendering if example == "rendering" else inverse_demo
+        log = mod.recover_albedo(EXAMPLE_STEPS, EXAMPLE_SIZE, device="cpu",
+                                 print_every=0)
+        log = log if example == "rendering" else log[0]
+        rows = [(r["loss"], r["kd_max_err"]) for r in log]
+    images[f"example-{example}-{side}"] = np.asarray(rows, np.float64)
+
+
 def run_processes(out_dir, names):
     """Render ``names`` (one process each, side by side, with FMA
     contraction off) into ``out_dir``; returns all their images."""
@@ -430,6 +517,8 @@ def main(out, names):
             diff_arrays(name[5:], images)
         elif name.startswith("regen:"):
             regen_images(name[6:], images)
+        elif name.startswith("example:"):
+            example_arrays(name[8:], images)
         elif name.startswith("sharded:"):
             scene, *kind = name.split(":")[1:]
             sharded_images(scene, images, *kind)

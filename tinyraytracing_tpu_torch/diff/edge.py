@@ -30,9 +30,9 @@ kernels. The integrands trace through ``ops.intersect.intersect`` with
 ``config.intersector``: on a CUDA tensor the packet-BVH kernel (a scene
 with a BVH) or the slot kernel. The gathers that carry gradients
 (endpoints and sampled edges) use ``ops.lookup.gather_rows``, whose
-backward is ``index_add_``. The sample streams are ``jax.random``'s
-(``ops.rng.uniform`` / ``randint``), so the same key samples the same
-edges and points as the JAX package.
+backward sums the cotangent rows in a fixed order. The sample streams
+are ``jax.random``'s (``ops.rng.uniform`` / ``randint``), so the same key
+samples the same edges and points as the JAX package.
 
 The edge topology (``boundary_edges``, ``mesh_edges``, ``build_edge_aux``)
 is host numpy, the JAX package's dictionary walk over vertex positions

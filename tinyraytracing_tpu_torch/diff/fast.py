@@ -15,12 +15,13 @@ and a fixed-depth planar renderer — the counterpart of
   kernel computes t, u, v through the Woop rows: the same function,
   equal up to float32 rounding. The triangle rows are gathered with
   ``index_select`` (``ops.lookup.gather_rows``; the JAX package's one-hot
-  MXU product for small scenes is a TPU device), so the cotangents are
-  scattered by ``index_add_``: its float adds run in another order than
-  XLA's scatter-add, and on the card as atomics, in no fixed order, so
-  the vertex cotangents agree with the JAX package's, and from run to
-  run on the card, to float rounding, not bitwise. ``mtl``, ``em`` and
-  ``tri`` are discrete: no gradient.
+  MXU product for small scenes is a TPU device), whose backward sums the
+  cotangent rows in a fixed order (``ops.scatter.scatter_add_rows_fixed``:
+  a kernel on the card, its plain version on the CPU). That order is
+  another than XLA's scatter-add, so the vertex cotangents agree with the
+  JAX package's to float rounding; from run to run they repeat bitwise,
+  on the card as on the CPU. ``mtl``, ``em`` and ``tri`` are discrete: no
+  gradient.
 - ``render_diff``: the fixed-depth planar renderer, the estimator of
   ``integrator/wavefront.trace`` (NEE, Russian roulette, the reference's
   quirks) on the pieces of ``integrator/fused.py`` and the path-indexed

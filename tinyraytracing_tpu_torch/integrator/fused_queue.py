@@ -12,17 +12,21 @@ the image by pixel id. Every random draw is the path-indexed threefry of
 
 The JAX loop body is a ``lax.while_loop``; here it is a Python ``while``
 with the same stop condition and ``max_iters`` cap. The XLA pieces become
-stock tensor ops: the MXU prefix sum ``torch.cumsum``, the broadcast-key
-plane sort a stable ``torch.sort`` plus gathers, and the drop-mode
-scatter-add an ``index_add_`` into an ``n_pix + 1`` buffer (CUDA atomics:
-pixel sums may differ from a CPU run in float-add order only).
+stock tensor ops: the MXU prefix sum ``torch.cumsum`` and the
+broadcast-key plane sort a stable ``torch.sort`` plus gathers. The
+drop-mode scatter-add into an ``n_pix + 1`` buffer is
+``ops.scatter.scatter_add_rows``: on the card a kernel that adds each
+pixel's finished paths in lane order, bitwise what ``index_add_`` adds on
+the CPU, so the same key gives the same image on either device, run after
+run (the JAX package's "Same key => same image"); the drop column is
+never added into.
 
 ``render_fused_queue_chunked`` runs the same loop in chunks of iterations
 sized to a wall-time target, carrying the whole lane state between them,
 and can snapshot that state to disk and resume from it
-(``utils/checkpoint.py``). A chunk boundary changes no arithmetic, so on
-the CPU a chunked or resumed render is bitwise the one-shot render (on
-the card, up to the atomics' float-add order).
+(``utils/checkpoint.py``). A chunk boundary changes no arithmetic, so a
+chunked or resumed render is bitwise the one-shot render, on the CPU and
+on the card.
 """
 
 from __future__ import annotations
@@ -51,6 +55,7 @@ from tinyraytracing_tpu_torch.integrator.fused import (
 from tinyraytracing_tpu_torch.models.camera import Camera
 from tinyraytracing_tpu_torch.ops import vec
 from tinyraytracing_tpu_torch.ops.rng import bounce_uniforms
+from tinyraytracing_tpu_torch.ops.scatter import scatter_add_rows
 from tinyraytracing_tpu_torch.ops.trace import (
     fused_trace_planes,
     occlusion_trace_segmented,
@@ -320,8 +325,9 @@ def _queue_setup(scene, cam: Camera, key, config: RenderConfig, spp: int,
         # --- finished paths scatter into the image by pixel id
         finished = active & ~alive_next
         spix = torch.where(finished, pix, n_pix)     # n_pix = dropped
-        img.index_add_(1, spix, torch.stack(
-            [torch.where(finished, rad[k] * inv_spp, zero) for k in range(3)]))
+        scatter_add_rows(img, 1, spix, torch.stack(
+            [torch.where(finished, rad[k] * inv_spp, zero) for k in range(3)]),
+            keep=n_pix)
         active = alive_next
         return dict(it=it + 1, counter=counter, active=active,
                     path_id=path_id, pix=pix, bounce=bounce, o=o, d=d,
@@ -391,8 +397,7 @@ def render_fused_queue_chunked(
     """The queue render in chunks of iterations, each sized to take about
     ``target_chunk_s`` (the JAX package's ``render_fused_queue_chunked``).
     Returns what ``render_fused_queue`` returns for the same ``path_lo`` /
-    ``n_paths``; on the CPU bitwise the same, on the card up to the
-    scatter's float-add order.
+    ``n_paths``, bitwise.
 
     With ``checkpoint_path`` the lane state is saved every
     ``checkpoint_every_s`` (between chunks) and removed when the render

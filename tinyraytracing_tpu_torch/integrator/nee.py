@@ -17,6 +17,7 @@ import torch
 
 from tinyraytracing_tpu_torch.config import RenderConfig
 from tinyraytracing_tpu_torch.ops.linalg import dot, length2, normalize
+from tinyraytracing_tpu_torch.ops.lookup import gather_rows
 from tinyraytracing_tpu_torch.ops.sampling import (
     PI, barycentric_ref, barycentric_uniform, f32_transcendental,
 )
@@ -46,9 +47,10 @@ def direct_light(scene, config: RenderConfig, intersect_fn,
     # returns the first maximum, as jnp.argmax does
     sel = (scene.lt_prefix[None, :, :] > rnd[:, :, None]).to(torch.int8).argmax(dim=-1)
 
-    def take(table):  # (L, K, 3) -> (R, L, 3)
-        return torch.gather(table[None].expand(R, L, K, 3), 2,
-                            sel[:, :, None, None].expand(R, L, 1, 3))[:, :, 0, :]
+    flat = torch.arange(L, device=point.device)[None, :] * K + sel
+
+    def take(table):  # (L, K, 3) -> (R, L, 3): table[l, sel[r, l]]
+        return gather_rows(table.reshape(L * K, 3), flat)
 
     lv0, lv1, lv2 = take(scene.lt_v0), take(scene.lt_v1), take(scene.lt_v2)
     ln0, ln1, ln2 = take(scene.lt_n0), take(scene.lt_n1), take(scene.lt_n2)

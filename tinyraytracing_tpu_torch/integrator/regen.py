@@ -25,11 +25,10 @@ is read back from the device every ``CHECK_EVERY`` iterations. An
 iteration after the last path ended changes nothing (no lane is active
 or regenerated, and every count adds 0), so the image and ray count are
 those of testing every iteration. In ``render_regen`` only finished
-lanes add into the image: the others add into rows of their own past
-it, which are dropped, so no two lanes write one address for nothing;
-on the card the adds are atomics, so the order of a pixel's adds, and
-its last bits, may differ from run to run (as the queue renderer's
-scatter does).
+lanes add into the image: the others point at rows of their own past
+it, which are dropped (``ops.scatter.scatter_add_rows`` with ``keep``
+skips them). A pixel's finished paths add in lane order, on the card as
+on the CPU, so the image repeats bitwise from run to run.
 """
 
 from __future__ import annotations
@@ -41,6 +40,7 @@ from tinyraytracing_tpu_torch.integrator.wavefront import bounce as bounce_wave
 from tinyraytracing_tpu_torch.models.camera import Camera, camera_basis
 from tinyraytracing_tpu_torch.ops.linalg import normalize
 from tinyraytracing_tpu_torch.ops.rng import bits_to_uniform, fold_in, fold_in_planes
+from tinyraytracing_tpu_torch.ops.scatter import scatter_add_rows
 
 # iterations between two reads of the loop condition from the device
 CHECK_EVERY = 4
@@ -144,7 +144,7 @@ def render_regen(scene, cam: Camera, key, config: RenderConfig, spp: int,
         # --- finished paths add into their pixels
         finished = active & ~alive_next
         rows = torch.where(finished, path_id // spp, n_pix + lane)
-        img.index_add_(0, rows, radiance * inv_spp)
+        scatter_add_rows(img, 0, rows, radiance * inv_spp, keep=n_pix)
         n = active.sum() + L * shade_mask.sum()
         rays_traced = rays_traced + n.to(f32)
         if stats is not None:

@@ -47,7 +47,7 @@ def bounce(scene, config: RenderConfig, org, d, ray_type, throughput, radiance,
 
     Tables that can carry a gradient (materials, radiance, shading
     normals) are gathered with ``ops.lookup.gather_rows``, whose backward
-    is ``index_add_``."""
+    sums the cotangent rows in a fixed order."""
     R = org.shape[0]
     L = scene.light_mtl.shape[0]
     dev = org.device

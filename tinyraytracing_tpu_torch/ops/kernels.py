@@ -29,7 +29,7 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
-SOURCES = ("trace.cu", "bvh_intersect.cu", "slot_intersect.cu")
+SOURCES = ("trace.cu", "bvh_intersect.cu", "slot_intersect.cu", "scatter_add.cu")
 
 _libs: dict[tuple[str, tuple[str, ...]], ctypes.CDLL] = {}
 

@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from tinyraytracing_tpu_torch.ops.scatter import scatter_add_rows_fixed
+
 CHAIN_LIMIT = 64
 
 
@@ -23,14 +25,35 @@ def _rows(M: int, idx: torch.Tensor) -> torch.Tensor:
     return torch.where((i >= 0) & (i < M), i, M - 1)
 
 
+class _GatherRows(torch.autograd.Function):
+    """``index_select`` forward; the backward adds the cotangent rows by
+    ``ops.scatter.scatter_add_rows_fixed``, in a fixed order."""
+
+    @staticmethod
+    def forward(ctx, table, rows):
+        ctx.save_for_backward(rows)
+        ctx.n_rows = table.shape[0]
+        return torch.index_select(table, 0, rows)
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.needs_input_grad[0]:
+            return None, None
+        (rows,) = ctx.saved_tensors
+        return scatter_add_rows_fixed(ctx.n_rows, rows, g.contiguous()), None
+
+
 def gather_rows(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
-    """``table[rows]`` for integer ``rows`` of any shape, by
-    ``index_select``: its backward adds the cotangent rows with
-    ``index_add_`` (atomics on the card). ``table[rows]``'s backward sorts
-    the indices first and then adds each run of equal rows in turn, which
-    on the card is many times slower where many rows repeat, as in a
-    gather from a material or light table (PERF.md, Findings)."""
-    flat = torch.index_select(table, 0, rows.reshape(-1))
+    """``table[rows]`` for integer ``rows`` (in [0, M)) of any shape, by
+    ``index_select``. Its backward sums the cotangent rows in a fixed
+    order (``ops.scatter.scatter_add_rows_fixed``: the CUDA kernel on the
+    card, its plain version on the CPU), so a gradient repeats bitwise
+    from run to run. ``index_select``'s own backward (``index_add_``) adds
+    with atomics on the card, in no fixed order; ``table[rows]``'s sorts
+    the indices and then adds each run of equal rows in turn, which on the
+    card is many times slower where many rows repeat, as in a gather from
+    a material or light table (PERF.md, Findings)."""
+    flat = _GatherRows.apply(table, rows.reshape(-1))
     return flat.reshape(*rows.shape, *table.shape[1:])
 
 

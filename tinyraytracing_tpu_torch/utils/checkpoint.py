@@ -5,7 +5,7 @@
   state between chunks (``integrator/fused_queue.py::
   render_fused_queue_chunked``), written atomically. A resumed render
   continues the same loop from the same state, so it is bitwise the
-  uninterrupted one on the CPU.
+  uninterrupted one, on the CPU and on the card.
 - ``render_checkpointed``: the scan renderer in chunks of passes,
   persisting the accumulated image after every chunk; pass s always draws
   with ``fold_in(key, s)``, so a resumed render is bitwise the
