@@ -36,8 +36,9 @@ phase 6 each loss's gradients, to the first run's bits, and phase 5 the
 resumed queue render to the one-shot one. Phase 6b holds the two
 fixed-order scatter kernels (``csrc/scatter_add.cu``, no TPU counterpart:
 they replace ``index_add_``'s atomics) bitwise to their plain versions on
-calls copied from phases 3, 6 and 8, timed against ``index_add_`` and
-``index_put_``; phase 10 runs the two inverse-rendering examples
+calls copied from phases 3, 6 and 8 and on the edge cases of the CPU
+tests, timed against ``index_add_`` and ``index_put_``, with each call's
+device ops and a run under the sync debug mode; phase 10 runs the two inverse-rendering examples
 (``tinyraytracing_tpu_torch/examples/``) at 32x32. The CLI's tree must come
 from the native builder (``native/``, built with g++ in phase 1). The
 slot kernel is also checked on grid6000 and on the tie scene of the CPU
@@ -56,7 +57,9 @@ included) and on the differentiable paths (forward, the backward's recompute, th
 timed
 set runs after ~50 ms of back-to-back launches that raise the card's
 clock from idle, and the log gives the SM clock nvidia-smi read right
-after it, marking readings below 1,500 MHz.
+after it, marking readings below 1,500 MHz. Each profiler reading of
+phases 2 and 2b is logged beside a second one, CUDA events around calls
+queued behind a spin kernel, and summarized after phase 2b.
 
 Before and after a kernel's redesign, on one card in one call:
 
@@ -67,8 +70,11 @@ times the redesigned kernels of the parent's package and of this tree in
 turns (parent, this, this, parent) and checks their outputs bitwise equal:
 the trace kernels through ``ops.trace.fused_trace_planes`` (closest hit
 and occlusion, preorder and near-first), the packet sums, the packet-BVH
-kernel and the slot kernel; and times phase 6's scan ``render_loss``
-forward + backward (its gradients are not compared bitwise). ``--sass TREE`` counts the SASS instructions
+kernel and the slot kernel, and the two scatter kernels on phase 6b's
+shapes (the queue's and ``render_regen``'s image calls, the longest
+cotangent call, every cotangent call of a cornell forward + backward);
+and times phase 6's scan ``render_loss`` forward + backward (its
+gradients are not compared bitwise). ``--sass TREE`` counts the SASS instructions
 per slot test of the slot kernel of TREE's package.
 """
 
@@ -221,12 +227,39 @@ def _mhz(clock):
     return f"{clock} MHz" + (f" (below {LOW_MHZ:,} MHz)" if clock < LOW_MHZ else "")
 
 
+# (kernel names, torch.profiler's device ms a launch, the spin-queued
+# events' device ms a call) of every _times set, for phase 2's summary
+SECOND_READINGS = []
+
+
 def _times(fn, names, n=20):
     """(device ms per launch, host-inclusive ms per call, SM clock MHz right
-    after) of ``fn``, after a warm-up load of ``fn`` itself."""
+    after) of ``fn``, after a warm-up load of ``fn`` itself. The profiler's
+    device time gets a second reading, logged beside it: CUDA events around
+    ``n`` calls queued behind a spin kernel (``_device_total_ms``: every
+    device op of a call, no record dropped)."""
     _warm(fn)
     dev, host = _device_ms(fn, names, n), _host_ms(fn, n)
-    return dev, host, _sm_clock()
+    mhz = _sm_clock()
+    spin, _ = _device_total_ms(fn, n)
+    SECOND_READINGS.append((names, dev, spin))
+    log(f"    (device time of {names or 'every kernel'}: torch.profiler "
+        f"{dev:.5f} ms a launch, CUDA events behind a spin {spin:.5f} ms a "
+        f"call)")
+    return dev, host, mhz
+
+
+def _second_readings_summary():
+    """One line on phases 2 and 2b's device times: the spin-queued events'
+    reading over the profiler's, per set."""
+    ratios = sorted(spin / dev for _, dev, spin in SECOND_READINGS if dev > 0)
+    if not ratios:
+        return
+    low = sum(r > 1.1 for r in ratios)
+    log(f"  second readings of {len(ratios)} device-time sets (CUDA events "
+        f"behind a spin over torch.profiler): min {ratios[0]:.3f}, median "
+        f"{statistics.median(ratios):.3f}, max {ratios[-1]:.3f}; {low} sets "
+        f"where the profiler read more than 10% below the events")
 
 
 def _bound(ops, nbytes):
@@ -1618,13 +1651,35 @@ def _bits_equal(a, b):
                        b.contiguous().view(torch.int32).cpu())
 
 
+def _ops_text(ops, want):
+    return (f"{ops} device ops a call (the nodes of its CUDA graph; at most "
+            f"{want})")
+
+
+def _never_synchronizes(fn):
+    """``fn()`` under torch.cuda.set_sync_debug_mode("error"): True unless
+    it raises (a read back to the host)."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+        return True
+    except RuntimeError as e:
+        log(f"    synchronized: {e}")
+        return False
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+
+
 def _scatter_rows_case(label, dev, args, iterations):
     """The image scatter of one main-path iteration (``args``: its CPU
     copies): the kernel bitwise its plain version and the CPU's index_add_
-    on the rows below ``keep``; device time per call (the sort included)
-    against the sort alone, index_add_ (atomics) and index_put_ with
-    accumulate (the deterministic library path), each into the same
-    image. Returns (ok, case dict)."""
+    on the rows below ``keep``; device time per call against a library
+    stable sort of the same rows alone, index_add_ (atomics) and
+    index_put_ with accumulate (the deterministic library path), each into
+    the same image; the device ops of a call and a run under the sync
+    debug mode. Returns (ok, case dict)."""
     from tinyraytracing_tpu_torch.ops import scatter as sc
 
     dst0, dim, rows, src, keep = args
@@ -1638,8 +1693,11 @@ def _scatter_rows_case(label, dev, args, iterations):
     buf = dst0.clone()
     idx = ((torch.arange(dst0.shape[0], device=dev)[:, None], rows[None, :])
            if dim == 1 else (rows,))
-    ms, mhz = _device_total_ms(lambda: sc.scatter_add_rows(buf, dim, rows, src, keep))
-    host = _host_ms(lambda: sc.scatter_add_rows(buf, dim, rows, src, keep))
+    call = lambda: sc.scatter_add_rows(buf, dim, rows, src, keep)
+    ms, mhz = _device_total_ms(call)
+    host = _host_ms(call)
+    ops = _tests_module("torch_scatter_emulate").device_ops(call)
+    quiet = _never_synchronizes(call)
     sort_ms, _ = _device_total_ms(lambda: torch.sort(rows.to(torch.int32), stable=True))
     add_ms, _ = _device_total_ms(lambda: buf.index_add_(dim, rows, src))
     put_ms, _ = _device_total_ms(lambda: buf.index_put_(idx, src, accumulate=True))
@@ -1648,20 +1706,55 @@ def _scatter_rows_case(label, dev, args, iterations):
     n, C = rows.numel(), src.shape[1 - dim]
     use = (rows >= 0) & (rows < keep)
     n_kept, D = int(use.sum()), int(torch.unique(rows[use]).numel())
-    # rows and values read once; each row added into read and written once
-    bound, by = _bound(C * n_kept, rows.element_size() * n + 4 * C * n + 8 * C * D)
+    # every row id read once, the kept values once, each row added into
+    # read and written once (a dropped lane's values are never read)
+    bound, by = _bound(C * n_kept,
+                       rows.element_size() * n + 4 * C * n_kept + 8 * C * D)
+    want_ops = sc.DEVICE_OPS["scatter_rows"]
     log(f"  {label}: {n:,} lanes into {tuple(dst0.shape)} along dim {dim}, "
         f"{n_kept:,} kept into {D:,} rows: bitwise its plain version and the "
         f"CPU's index_add_: {same} (max abs diff {err:.3g}); device "
-        f"{ms:.4f} ms a call (host-inclusive {host:.4f}), of it the stable "
-        f"sort {sort_ms:.4f}; index_add_ {add_ms:.4f}, index_put_ "
+        f"{ms:.4f} ms a call (host-inclusive {host:.4f}), "
+        f"{_ops_text(ops, want_ops)}, no host synchronization: {quiet}; a "
+        f"library stable sort of the rows alone {sort_ms:.4f}; index_add_ "
+        f"{add_ms:.4f} (the kernel {ms / add_ms:.2f}x it), index_put_ "
         f"(accumulate) {put_ms:.4f}; plain {plain_ms:.2f}; bound {bound:.5f} "
         f"({by}); x {iterations} iterations: {ms * iterations:.2f} ms against "
         f"index_add_'s {add_ms * iterations:.2f}; {_mhz(mhz)} after it")
-    return same, dict(ms=ms, device_ms=ms, host_ms=host, sort_ms=sort_ms,
-                      library_ms=add_ms, index_put_ms=put_ms, plain_ms=plain_ms,
-                      bound_ms=bound, bound_by=by, max_abs_err=err,
-                      iterations=iterations, sm_mhz=mhz)
+    ok = same and quiet and 0 < ops <= want_ops
+    return ok, dict(ms=ms, device_ms=ms, host_ms=host, sort_ms=sort_ms,
+                    library_ms=add_ms, index_put_ms=put_ms, plain_ms=plain_ms,
+                    bound_ms=bound, bound_by=by, max_abs_err=err,
+                    iterations=iterations, sm_mhz=mhz, ops_per_call=ops)
+
+
+def _scatter_edge_cases(dev):
+    """Both kernels bitwise their plain versions on the edge cases of the
+    CPU tests (tests/torch_scatter_emulate.py): rows past keep and
+    negative, one row taking every value, every row unique, fewer than 32
+    values, a short last block, no values, 256 and 257 rows."""
+    from tinyraytracing_tpu_torch.ops import scatter as sc
+
+    emu = _tests_module("torch_scatter_emulate")
+    on = lambda a: torch.from_numpy(a).to(dev)
+    bad = []
+    for case in emu.ROWS_CASES:
+        rows, dst, src, dim, keep = emu.rows_case(case)
+        rows, dst, src = on(rows), on(dst), on(src)
+        got = sc.scatter_add_rows(dst.clone(), dim, rows, src, keep)
+        if not _bits_equal(got, sc.scatter_add_rows_plain(dst.clone(), dim, rows,
+                                                          src, keep)):
+            bad.append(f"rows: {case}")
+    for case in emu.FIXED_CASES:
+        rows, src, n_rows = emu.fixed_case(case)
+        rows, src = on(rows), on(src)
+        if not _bits_equal(sc.scatter_add_rows_fixed(n_rows, rows, src),
+                           sc.scatter_add_rows_fixed_plain(n_rows, rows, src)):
+            bad.append(f"fixed: {case}")
+    log(f"  edge cases ({len(emu.ROWS_CASES)} image, {len(emu.FIXED_CASES)} "
+        f"cotangent): bitwise their plain versions: "
+        f"{'all' if not bad else 'NOT ' + ', '.join(bad)}")
+    return not bad
 
 
 def phase_scatter(dev, refs, reports, counts):
@@ -1671,7 +1764,9 @@ def phase_scatter(dev, refs, reports, counts):
     scatter of phase 3's queue render and of phase 8's ``render_regen``
     (iteration SCATTER_PICK; ``counts``: their iterations), and every
     cotangent scatter of one phase-6 forward + backward of cornell
-    512x512 in kd + vertex_offset, alone and summed over the call."""
+    512x512 in kd + vertex_offset, alone and summed over the call; each
+    call's device ops and a run under the sync debug mode; then the edge
+    cases of the CPU tests."""
     from tinyraytracing_tpu_torch.ops import scatter as sc
 
     log("phase 6b: the fixed-order scatter kernels (csrc/scatter_add.cu, no "
@@ -1714,6 +1809,12 @@ def phase_scatter(dev, refs, reports, counts):
     t1 = {k: _device_total_ms(f)[0] for k, f in one.items()}
     host = _host_ms(one["kernel"])
     mhz = _sm_clock()
+    emu = _tests_module("torch_scatter_emulate")
+    each = [emu.device_ops(lambda: sc.scatter_add_rows_fixed(n, r, x))
+            for n, r, x in {c[0]: c for c in calls}.values()]
+    ops = max(each)
+    quiet = _never_synchronizes(lambda: [sc.scatter_add_rows_fixed(n, r, x)
+                                         for n, r, x in calls])
     plain_ms = _events_ms(lambda: sc.scatter_add_rows_fixed_plain(n_rows, rows, g), 3)
     n, C = rows.numel(), g[0].numel()
     D = int(torch.unique(rows).numel())
@@ -1726,26 +1827,30 @@ def phase_scatter(dev, refs, reports, counts):
                            for n, r, x in calls])
     tall = {k: _device_total_ms(f, 2)[0] for k, f in every.items()}
     shapes = sorted({(c[1].numel(), c[0], c[2][0].numel()) for c in calls})
+    want_ops = sc.DEVICE_OPS["scatter_fixed"]
     log(f"  cotangents: {len(calls)} scatters in one cornell 512x512 forward + "
         f"backward (rows, table rows, channels: {shapes}); each bitwise its "
         f"plain version on the card: {same} (max abs diff {max(errs):.3g}); "
         f"the call of {n:,} rows into {n_rows} ({C} channels) also on the "
-        f"CPU: {cpu_same}")
+        f"CPU: {cpu_same}; {_ops_text(ops, want_ops)}; no host "
+        f"synchronization in all {len(calls)}: {quiet}")
     log(f"    that call: kernel {t1['kernel']:.4f} ms device (host-inclusive "
         f"{host:.4f}), index_add_ {t1['index_add']:.4f}, index_put_ "
         f"(accumulate) {t1['index_put']:.4f}, plain {plain_ms:.2f}; bound "
         f"{bound:.5f} ({by}); {_mhz(mhz)} after it")
     log(f"    all {len(calls)} of them: kernel {tall['kernel']:.3f} ms device, "
         f"index_add_ {tall['index_add']:.3f}, index_put_ {tall['index_put']:.3f}")
-    ok &= same and cpu_same
+    ok &= same and cpu_same and quiet and 0 < min(each) and ops <= want_ops
     reports["scatter_fixed"] = dict(
         ms=t1["kernel"], device_ms=t1["kernel"], host_ms=host,
         library_ms=t1["index_add"], index_put_ms=t1["index_put"],
         plain_ms=plain_ms, bound_ms=bound, bound_by=by, max_abs_err=max(errs),
-        sm_mhz=mhz, cases={"every cotangent scatter of one forward + backward":
-                           dict(calls=len(calls), ms=tall["kernel"],
-                                library_ms=tall["index_add"],
-                                index_put_ms=tall["index_put"])})
+        sm_mhz=mhz, ops_per_call=ops,
+        cases={"every cotangent scatter of one forward + backward":
+               dict(calls=len(calls), ms=tall["kernel"],
+                    library_ms=tall["index_add"],
+                    index_put_ms=tall["index_put"])})
+    ok &= _scatter_edge_cases(dev)
     log(f"phase 6b: {'ok' if ok else 'FAILED'}")
     return ok
 
@@ -2650,7 +2755,8 @@ def kernel_times(tree):
     kinds of rays on the same scenes; and the slot kernel on phase 2b's
     three kinds of rays on cornell and grid6000, with an empty kernel on
     its grid as the floor under its time; and the scan ``render_loss``
-    forward + backward of phase 6 (``_loss_case``). Prints one JSON
+    forward + backward of phase 6 (``_loss_case``); and the two scatter
+    kernels at phase 6b's shapes (``_scatter_cases``). Prints one JSON
     object: per case [device ms, host-inclusive ms, digest of the outputs,
     SM clock MHz after the set] (no digest for torch.sum, the empty
     kernel, the packets of 16384, whose order of adds the packet-sum
@@ -2721,8 +2827,63 @@ def kernel_times(tree):
         lambda: rays[3:6].reshape(3, n, 2048).sum(dim=2), None, False)
     res["render_loss scan bvh_pallas cornell 512x512, kd+radiance, "
         "forward + backward"] = _loss_case()
+    _scatter_cases(res, digest)
     print(json.dumps(res), flush=True)
     return 0
+
+
+def _scatter_cases(res, digest):
+    """The scatter kernels at phase 6b's shapes, as the package in use runs
+    them, into ``res``: [device ms a call (CUDA events behind a spin),
+    host-inclusive ms, digest of the outputs, SM MHz]. Inputs from a seed
+    (tests/torch_scatter_emulate.py): the queue's image call at 4 spp (phase
+    3's) and at 256 spp (the CLI's default: ~19 finished lanes a pixel,
+    so almost every call sorts), render_regen's, 262,144 cotangent rows into 2 (the longest runs), 32, 256 and 257 (one
+    sort pass and two) and 100,000 rows; and every cotangent scatter of
+    one phase-6 cornell 512x512 forward + backward, as that package's own
+    loss makes them."""
+    import numpy as np
+
+    from tinyraytracing_tpu_torch.config import RenderConfig
+    from tinyraytracing_tpu_torch.models.procedural import cornell_box
+    from tinyraytracing_tpu_torch.ops import lookup
+    from tinyraytracing_tpu_torch.ops import scatter as sc
+    from tinyraytracing_tpu_torch.ops.bvh import attach_bvh
+    from tinyraytracing_tpu_torch.ops.rng import master_key_data
+
+    emu = _tests_module("torch_scatter_emulate")
+
+    def timed(label, fn, once, n=20):
+        ms, mhz = _device_total_ms(fn, n)
+        res[label] = [ms, _host_ms(fn, n), digest(once()), mhz]
+
+    for label, make in (("queue image call", emu.queue_call),
+                        ("queue image call at 256 spp (the CLI's default)",
+                         lambda: emu.queue_call(spp=256)),
+                        ("render_regen image call", emu.regen_call)):
+        rows, dst, src, dim, keep = make()
+        rows, dst, src = (torch.from_numpy(a).cuda() for a in (rows, dst, src))
+        buf = dst.clone()
+        timed(f"scatter_rows, {label}",
+              lambda: sc.scatter_add_rows(buf, dim, rows, src, keep),
+              lambda: sc.scatter_add_rows(dst.clone(), dim, rows, src, keep))
+    # 2 rows: the longest runs; 256 and 257: one sort pass and two
+    for n_rows in (2, 32, 256, 257, 100_000):
+        rng = np.random.default_rng(n_rows)
+        rows = torch.from_numpy(rng.integers(0, n_rows, 262_144)).cuda()
+        src = torch.from_numpy(emu.values(rng, 262_144, 3)).cuda()
+        fn = lambda: sc.scatter_add_rows_fixed(n_rows, rows, src)
+        timed(f"scatter_fixed, 262,144 rows into {n_rows:,}", fn, fn)
+    cfg = RenderConfig(max_depth=DIFF_DEPTH)
+    scene, cam = cornell_box(512, 512, device="cuda")
+    scene = attach_bvh(scene, cfg)
+    with _captured_scatter(lookup, "scatter_add_rows_fixed") as kept:
+        _loss_and_grads(scene, cam, ("kd", "vertex_offset"), cfg,
+                        master_key_data(0), torch.zeros(512, 512, 3, device="cuda"))
+    calls = [(n, r.cuda(), g.cuda()) for n, r, g in kept]
+    fn = lambda: tuple(sc.scatter_add_rows_fixed(n, r, x) for n, r, x in calls)
+    timed(f"scatter_fixed, the {len(calls)} cotangent calls of a cornell "
+          f"512x512 forward + backward", fn, fn, 2)
 
 
 def _loss_case():
@@ -3139,6 +3300,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     ok2, ok2b, reports = phase_kernels(dev)
+    _second_readings_summary()
     refs = {}                   # phases 3, 3b and 3c's renders, for phase 9
     with tempfile.TemporaryDirectory() as tmp:
         ok3, launches = phase_cli(dev, tmp, refs)

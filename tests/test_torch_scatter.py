@@ -4,13 +4,26 @@ On the CPU: ``scatter_add_rows``' plain version is bitwise the CPU's
 ``index_add_`` (which adds in index order); the fixed-order plain version
 follows its stated order bitwise, is within 1e-6 of its norm of a float64
 sum and repeats bitwise; emulations of the two kernels' thread programs,
-step by step as ``csrc/scatter_add.cu`` runs them, equal the plain
-versions bitwise; ``gather_rows``' gradient equals ``index_select``'s
+launch by launch and warp turn by warp turn as ``csrc/scatter_add.cu``
+runs them (``tests/torch_scatter_emulate.py``: the count, the radix
+passes' warp ranks and placement, the runs' adds, every level of the
+fixed sums in one launch, its threads in two orders), equal the plain
+versions bitwise, at the kernel's launch shape and at a small one that
+takes several blocks, sub-tiles and passes, on the edge cases (rows past
+keep and negative, one row taking every value, every row unique, fewer
+than 32 values, a short last block, no values, 256 and 257 rows: one
+sort pass and two); ``gather_rows``' gradient equals ``index_select``'s
 within float rounding.
 
 On the card (marked ``cuda``; they skip elsewhere; run them there with
 ``python -m pytest tests/test_torch_scatter.py -q --noconftest``): each
-kernel bitwise its plain version, and renders and gradients that repeat
+kernel bitwise its plain version, at the main paths' shapes
+(``tests/torch_scatter_emulate.py``: the queue's image calls at 4 and
+256 spp, ``render_regen``'s, cotangent tables of 1 to 100,000 rows) and
+on the edge cases of the CPU tests; no wrapper call synchronizes
+(``torch.cuda.set_sync_debug_mode("error")``); one call of each,
+captured in a CUDA graph, replays bitwise; a call's graph holds at most
+``scatter.DEVICE_OPS`` device ops; and renders and gradients that repeat
 bitwise: two queue renders, two ``render_regen`` calls, two
 ``render_loss_fast`` and two scan ``render_loss`` gradients, and a
 chunked, interrupted and resumed queue render against the one-shot one.
@@ -22,6 +35,8 @@ import torch
 
 from tinyraytracing_tpu_torch.ops import scatter
 from tinyraytracing_tpu_torch.ops.lookup import gather_rows
+# by its own name: the card's machine may have another package named tests
+import torch_scatter_emulate as emu
 
 
 def _values(rng, n, c):
@@ -125,70 +140,20 @@ def test_fixed_plain_places_rows_that_appear_once():
                        torch.zeros(300, 2).index_add_(0, rows, src))
 
 
-def _emulate_rows_kernel(dst, dim, rows, src, keep):
-    """csrc/scatter_add.cu's scatter_rows_kernel, thread by thread."""
-    srow, perm = (t.numpy() for t in scatter._sorted_rows(rows))
-    d, s = dst.numpy(), src.numpy()
-    n = srow.size
-    for i in range(n):
-        r = srow[i]
-        if r < 0 or r >= keep or (i > 0 and srow[i - 1] == r):
-            continue
-        e = i + 1
-        while e < n and srow[e] == r:
-            e += 1
-        for c in range(d.shape[1 - dim]):
-            at = (r, c) if dim == 0 else (c, r)
-            acc = d[at]
-            for j in range(i, e):
-                acc = np.float32(acc + s[(perm[j], c) if dim == 0 else (c, perm[j])])
-            d[at] = acc
-    return dst
+def _emulate_rows_kernel(dst, dim, rows, src, keep, shape=emu.KERNEL, order=None):
+    """csrc/scatter_add.cu's trt_scatter_rows, phase by phase and warp
+    turn by warp turn (tests/torch_scatter_emulate.py), its claims in
+    ``order``."""
+    d = dst.numpy().copy()
+    emu.rows_add(d, dim, rows.numpy(), src.numpy(), keep, shape, order)
+    return torch.from_numpy(d)
 
 
-def _emulate_fixed_kernel(n_rows, rows, src, k):
-    """csrc/scatter_add.cu's trt_scatter_fixed: its levels, and each
-    level's threads one after another (a level's threads read one buffer
-    and write the other, so their order does not matter)."""
-    srow, perm = (t.numpy() for t in scatter._sorted_rows(rows))
-    n = srow.size
-    x = src.reshape(n, -1).numpy()
-    C = x.shape[1]
-    dst = np.zeros((n_rows, C), np.float32)
-    bufs = (np.full((n, C), np.nan, np.float32), np.full((n, C), np.nan, np.float32))
-    run_s, run_e = np.zeros(n, np.int64), np.zeros(n, np.int64)
-    kpow, level = 1, 0
-    while True:
-        out, inp = bufs[level & 1], bufs[(level & 1) ^ 1]
-        for p in range(n):
-            if level == 0:
-                run_s[p] = np.searchsorted(srow, srow[p], "left")
-                run_e[p] = np.searchsorted(srow, srow[p], "right")
-            s, e = run_s[p], run_e[p]
-            m_in = (e - s + kpow - 1) // kpow
-            if level > 0 and m_in == 1:
-                continue
-            m_out = (m_in + k - 1) // k
-            q = p - s
-            if q >= m_out:
-                continue
-            first = q * k
-            ln = min(m_in - first, k)
-            for c in range(C):
-                read = ((lambda t: x[perm[s + first + t], c]) if level == 0
-                        else (lambda t: inp[s + first + t, c]))
-                acc = read(0)
-                for t in range(1, ln):
-                    acc = np.float32(acc + read(t))
-                if m_out == 1:
-                    dst[srow[s], c] = acc
-                else:
-                    out[s + q, c] = acc
-        kpow *= k
-        if kpow >= n:
-            break
-        level += 1
-    return torch.from_numpy(dst)
+def _emulate_fixed_kernel(n_rows, rows, src, k, shape=emu.KERNEL, order=None):
+    """csrc/scatter_add.cu's trt_scatter_fixed: the sort, then the sums of
+    every level in one launch, its threads one after another in ``order``."""
+    out = emu.fixed_sum(n_rows, rows.numpy(), src.numpy(), k, shape, order)
+    return torch.from_numpy(out.reshape(n_rows, *src.shape[1:]))
 
 
 @pytest.mark.parametrize("dim", [0, 1])
@@ -214,6 +179,61 @@ def test_fixed_kernel_emulation_equals_plain(k, n, n_rows):
     got = _emulate_fixed_kernel(n_rows + 1, rows, src, k)
     want = scatter.scatter_add_rows_fixed_plain(n_rows + 1, rows, src, k)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+# a launch shape of 128-item sub-tiles, at most 3 blocks and 3-bit digits:
+# several blocks, sub-tiles a block and sort passes at a few thousand rows
+SMALL = emu.Shape(threads=64, items=2, max_blocks=3, digit_bits=3)
+SHAPES = {"kernel": emu.KERNEL, "small": SMALL}
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("case", emu.ROWS_CASES)
+def test_rows_kernel_emulation_edge_cases(case, shape):
+    rows, dst, src, dim, keep = (
+        torch.from_numpy(a) if isinstance(a, np.ndarray) else a
+        for a in emu.rows_case(case))
+    want = scatter.scatter_add_rows_plain(dst.clone(), dim, rows, src, keep=keep)
+    shuffled = np.random.default_rng(8).permutation(rows.numel())
+    for order in (None, shuffled):                 # the claims' order
+        got = _emulate_rows_kernel(dst.clone(), dim, rows, src, keep,
+                                   SHAPES[shape], order)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    past = (slice(keep, None),) if dim == 0 else (slice(None), slice(keep, None))
+    assert torch.equal(got[past], dst[past])
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("case", emu.FIXED_CASES)
+def test_fixed_kernel_emulation_edge_cases(case, shape):
+    """Bitwise the plain version, whichever lane finishes a node last:
+    the sums' lanes in ascending order and in a shuffled one."""
+    rows, src, n_rows = emu.fixed_case(case)
+    rows, src = torch.from_numpy(rows), torch.from_numpy(src)
+    want = scatter.scatter_add_rows_fixed_plain(n_rows, rows, src)
+    shuffled = np.random.default_rng(7).permutation(rows.numel())
+    for order in (None, shuffled):
+        got = _emulate_fixed_kernel(n_rows, rows, src, scatter.FIXED_CHUNK,
+                                    SHAPES[shape], order)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_emulation_constants_are_the_kernels():
+    """The emulation's launch constants and plan are the source's."""
+    from pathlib import Path
+
+    text = (Path(scatter.__file__).parents[1] / "csrc" / "scatter_add.cu").read_text()
+    for name, value in (("THREADS", emu.KERNEL.threads), ("ITEMS", emu.KERNEL.items),
+                        ("MAX_BLOCKS", emu.KERNEL.max_blocks),
+                        ("DIGIT_BITS", emu.KERNEL.digit_bits), ("SLOTS", emu.SLOTS)):
+        assert f"constexpr int {name} = {value};" in text, name
+    # passes per row count: one up to 256 rows, three at 2^20
+    assert [len(emu.make_plan(1000, k).passes) for k in (0, 1, 2, 256, 257, 1 << 20)] \
+        == [1, 1, 1, 1, 2, 3]
+    for n in (1, 4096, 4097, 262_144, 262_145, 1 << 21):
+        p = emu.make_plan(n, 7)
+        assert p.G <= emu.KERNEL.max_blocks and p.G * p.BS >= n
+        assert (p.G - 1) * p.BS < n and p.BS % emu.KERNEL.tile == 0
 
 
 @pytest.mark.parametrize("shape", [(9,), (9, 3), (9, 3, 3)])
@@ -268,9 +288,38 @@ def test_rows_kernel_bitwise_equal_plain(dim, device):
     assert torch.equal(_bits(got[keep]), _bits(cpu[keep]))
 
 
+def _rows_call(case, device):
+    """(rows, dst, src, dim, keep) on the card: a main path's call at full
+    width ("queue", "queue 256 spp", "regen") or an edge case of the CPU
+    tests."""
+    make = {"queue": emu.queue_call, "regen": emu.regen_call,
+            "queue 256 spp": lambda: emu.queue_call(spp=256)}.get(case)
+    args = make() if make else emu.rows_case(case)
+    return tuple(torch.from_numpy(a).to(device) if isinstance(a, np.ndarray)
+                 else a for a in args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ("queue", "queue 256 spp", "regen",
+                                  *emu.ROWS_CASES))
+def test_rows_kernel_bitwise_equal_plain_main_paths_and_edges(case, device):
+    rows, dst, src, dim, keep = _rows_call(case, device)
+    scatter.reset_launch_counts()
+    got = scatter.scatter_add_rows(dst.clone(), dim, rows, src, keep=keep)
+    assert scatter.LAUNCHES["scatter_rows"] == (1 if rows.numel() else 0)
+    want = scatter.scatter_add_rows_plain(dst.clone(), dim, rows, src, keep=keep)
+    assert torch.equal(_bits(got), _bits(want))
+    # int32 row ids give the same bits
+    got32 = scatter.scatter_add_rows(dst.clone(), dim, rows.int(), src, keep=keep)
+    assert torch.equal(_bits(got32), _bits(want))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,n_rows,c", [(262_144, 4, 3), (262_144, 100_000, 3),
-                                        (33, 5, 18), (1, 1, 1)])
+                                        (33, 5, 18), (1, 1, 1),
+                                        (262_144, 1, 3), (262_144, 2, 3),
+                                        (262_144, 32, 3), (262_144, 256, 3),
+                                        (262_144, 257, 3), (524_288, 3, 3)])
 def test_fixed_kernel_bitwise_equal_plain(n, n_rows, c, device):
     rng = np.random.default_rng(n + n_rows)
     rows = torch.from_numpy(rng.integers(0, n_rows, n)).to(device)
@@ -284,6 +333,85 @@ def test_fixed_kernel_bitwise_equal_plain(n, n_rows, c, device):
     assert torch.equal(_bits(got), _bits(again))
     assert torch.equal(_bits(got), _bits(scatter.scatter_add_rows_fixed_plain(
         n_rows, rows.cpu(), src.cpu())))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", emu.FIXED_CASES)
+def test_fixed_kernel_edge_cases_bitwise_equal_plain(case, device):
+    rows, src, n_rows = emu.fixed_case(case)
+    rows, src = torch.from_numpy(rows).to(device), torch.from_numpy(src).to(device)
+    got = scatter.scatter_add_rows_fixed(n_rows, rows, src)
+    want = scatter.scatter_add_rows_fixed_plain(n_rows, rows, src)
+    assert torch.equal(_bits(got), _bits(want))
+
+
+def _fixed_call(n_rows, device, n=262_144):
+    rng = np.random.default_rng(n_rows)
+    return (torch.from_numpy(rng.integers(0, n_rows, n)).to(device),
+            torch.from_numpy(_values(rng, n, 3)).to(device))
+
+
+@pytest.mark.cuda
+def test_wrappers_never_synchronize(device):
+    """No wrapper call reads anything back to the host."""
+    calls = [lambda a=_rows_call(case, device): scatter.scatter_add_rows(
+                 a[1].clone(), a[3], a[0], a[2], keep=a[4])
+             for case in ("queue", "queue 256 spp", "regen")]
+    calls += [lambda a=_fixed_call(m, device), m=m: scatter.scatter_add_rows_fixed(m, *a)
+              for m in (2, 32, 100_000)]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for call in calls:
+            call()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ("queue", "queue 256 spp", "regen"))
+def test_rows_call_replays_bitwise_in_a_cuda_graph(case, device):
+    rows, dst0, src, dim, keep = _rows_call(case, device)
+    want = scatter.scatter_add_rows(dst0.clone(), dim, rows, src, keep=keep)
+    static = dst0.clone()
+    graph, _ = emu.captured(lambda: scatter.scatter_add_rows(static, dim, rows,
+                                                             src, keep=keep))
+    for _ in range(2):
+        static.copy_(dst0)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(static), _bits(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_rows", [2, 32, 100_000])
+def test_fixed_call_replays_bitwise_in_a_cuda_graph(n_rows, device):
+    rows, src = _fixed_call(n_rows, device)
+    want = scatter.scatter_add_rows_fixed(n_rows, rows, src)
+    graph, out = emu.captured(lambda: scatter.scatter_add_rows_fixed(n_rows, rows, src))
+    for _ in range(2):
+        out.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(out), _bits(want))
+
+
+@pytest.mark.cuda
+def test_device_ops_per_call(device):
+    """At most ``scatter.DEVICE_OPS`` a call (the images one cooperative
+    launch, the cotangents two launches), counted as the nodes of the
+    call's CUDA graph, at the main paths' shapes and cotangent tables of 2
+    to 100,000 rows."""
+    for case in ("queue", "queue 256 spp", "regen"):
+        rows, dst, src, dim, keep = _rows_call(case, device)
+        ops = emu.device_ops(lambda: scatter.scatter_add_rows(dst, dim, rows, src,
+                                                              keep=keep))
+        assert 0 < ops <= scatter.DEVICE_OPS["scatter_rows"] == 1, (case, ops)
+    for n_rows in (2, 32, 256, 100_000):
+        rows, src = _fixed_call(n_rows, device)
+        ops = emu.device_ops(lambda: scatter.scatter_add_rows_fixed(n_rows, rows, src))
+        assert 0 < ops <= scatter.DEVICE_OPS["scatter_fixed"] == 2, (n_rows, ops)
 
 
 @pytest.mark.cuda

@@ -7,9 +7,17 @@ the same key gives the same image and the same gradient
 image"). ``index_add_`` on a CUDA tensor adds with atomics, in whatever
 order the threads arrive. The hand-written kernels of
 ``csrc/scatter_add.cu`` take its place on the card; neither has a TPU
-counterpart. Both sort the rows stably first (``torch.sort(stable=True)``
-is deterministic), so the positions of one row form a run in ascending
-source position.
+counterpart; neither calls a library sort or scan. The image scatter
+lets every kept position claim one of its row's 4 slots, and the row's
+first claimant orders the row's positions and adds them; a call where a
+row took more values sorts instead. The cotangent scatter always sorts.
+The sort is a stable radix sort of their own over the kept rows' bits,
+so the positions of one row form a run in ascending source position. The
+plain versions sort with ``torch.sort(stable=True)`` (deterministic),
+which gives the same runs. A kernel call allocates its scratch with
+``torch.empty``, sized from the value count, the channels and the row
+count alone, and reads nothing back to the host, so it can be captured
+in a CUDA graph.
 
 - ``scatter_add_rows(dst, dim, rows, src, keep)``, for the images (the
   queue's ``(3, n_pix + 1)`` image along dim 1, ``render_regen``'s
@@ -44,7 +52,7 @@ import torch
 FIXED_CHUNK = 32          # K: values a chunk sums left to right, per level
 
 # kernel launches per wrapper; each wrapper adds one where it launches
-# ("scatter_fixed": one per call, which runs its levels' launches)
+# (one per call, which runs its sort's and its adds' launches)
 LAUNCHES = {"scatter_rows": 0, "scatter_fixed": 0}
 
 
@@ -71,6 +79,12 @@ def _runs(srow: torch.Tensor):
     e = torch.flip(torch.cummin(torch.flip(torch.where(tail, idx + 1, n), (0,)),
                                 0).values, (0,))
     return s, e
+
+
+# device ops a kernel call issues (its scratch comes from torch.empty,
+# which issues none): an image call's claims (or sort) and adds in one
+# cooperative launch; a cotangent call's sort, then its sums
+DEVICE_OPS = {"scatter_rows": 1, "scatter_fixed": 2}
 
 
 def fixed_levels(n: int, k: int = FIXED_CHUNK) -> int:
@@ -160,9 +174,11 @@ def _lib():
     lib = library("scatter_add.cu")
     if not getattr(lib, "_trt_typed", False):
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.trt_scatter_rows.argtypes = [P, P, P, P, I, I, I, L, L, L, L, P]
+        lib.trt_scatter_scratch_words.argtypes = [I, I, I, I]
+        lib.trt_scatter_scratch_words.restype = L
+        lib.trt_scatter_rows.argtypes = [P, P, I, P, P, I, I, I, L, L, L, L, P]
         lib.trt_scatter_rows.restype = ctypes.c_int
-        lib.trt_scatter_fixed.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, P]
+        lib.trt_scatter_fixed.argtypes = [P, P, I, P, P, I, I, I, I, P]
         lib.trt_scatter_fixed.restype = ctypes.c_int
         lib._trt_typed = True
     return lib
@@ -175,12 +191,32 @@ def _check(name, x, dev, dtype=torch.float32):
         raise ValueError(f"{name} is on {x.device}, expected {dev}")
 
 
+def _row_ids(rows: torch.Tensor, dev) -> torch.Tensor:
+    """``rows`` flat, as the kernels read them (int64 or int32, no cast)."""
+    if rows.device != dev or rows.dtype not in (torch.int32, torch.int64):
+        raise ValueError("rows must be an integer tensor on the values' device")
+    return rows.reshape(-1).contiguous()
+
+
+def _scratch(lib, n: int, n_keys: int, C: int, fixed: bool, dev):
+    """The call's scratch on the current card: int32 words whose count
+    follows from the sizes and the card alone (``trt_scatter_scratch_words``),
+    so a call can be captured in a CUDA graph; the kernel sets what it
+    reads before reading it."""
+    words = lib.trt_scatter_scratch_words(n, n_keys, C, int(fixed))
+    if words < 0:
+        raise RuntimeError(f"scatter kernel plan failed: cudaError {-1 - words}")
+    return torch.empty(words, dtype=torch.int32, device=dev)
+
+
 def scatter_add_rows_kernel(dst: torch.Tensor, dim: int, rows: torch.Tensor,
                             src: torch.Tensor, keep: int | None = None):
     """Launch ``trt_scatter_rows`` on PyTorch's current stream: ``dst``
     (2-D, float32, contiguous) updated in place as
-    ``scatter_add_rows_plain`` updates it, and returned. Raises on a CPU
-    tensor or a failed launch."""
+    ``scatter_add_rows_plain`` updates it, and returned. One device op
+    (the claims and the adds, or the sort and the adds, in one cooperative
+    launch), nothing read back to the host. Raises on a CPU tensor or a
+    failed launch."""
     if not dst.is_cuda:
         raise ValueError("scatter_add_rows_kernel needs CUDA tensors")
     _check("dst", dst, dst.device)
@@ -191,20 +227,22 @@ def scatter_add_rows_kernel(dst: torch.Tensor, dim: int, rows: torch.Tensor,
     if src.shape[dim] != n or src.shape[1 - dim] != dst.shape[1 - dim]:
         raise ValueError(f"src {tuple(src.shape)} does not fit dst "
                          f"{tuple(dst.shape)} and {n} rows along dim {dim}")
-    if rows.device != dst.device or rows.dtype not in (torch.int32, torch.int64):
-        raise ValueError("rows must be an integer tensor on dst's device")
-    if dst.shape[dim] >= 2**31:
-        raise ValueError("too many rows for int32 row ids")
-    keep = dst.shape[dim] if keep is None else min(keep, dst.shape[dim])
-    srow, perm = _sorted_rows(rows)
+    rows = _row_ids(rows, dst.device)
+    if dst.shape[dim] >= 2**31 or n >= 2**30:
+        raise ValueError("too many rows or values for int32 ids")
+    keep = dst.shape[dim] if keep is None else max(0, min(keep, dst.shape[dim]))
+    if n == 0:
+        return dst
     C = dst.shape[1 - dim]
     d_row, d_col = dst.stride(dim), dst.stride(1 - dim)
     s_row, s_col = src.stride(dim), src.stride(1 - dim)
+    lib = _lib()
     with torch.cuda.device(dst.device):
-        err = _lib().trt_scatter_rows(
-            dst.data_ptr(), srow.data_ptr(), perm.data_ptr(), src.data_ptr(),
-            n, C, keep, d_row, d_col, s_row, s_col,
-            torch.cuda.current_stream(dst.device).cuda_stream)
+        scratch = _scratch(lib, n, keep, C, False, dst.device)
+        err = lib.trt_scatter_rows(
+            dst.data_ptr(), rows.data_ptr(), int(rows.dtype == torch.int64),
+            src.data_ptr(), scratch.data_ptr(), n, C, keep, d_row, d_col,
+            s_row, s_col, torch.cuda.current_stream(dst.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"scatter_rows kernel launch failed: cudaError {err}")
     LAUNCHES["scatter_rows"] += 1
@@ -213,37 +251,37 @@ def scatter_add_rows_kernel(dst: torch.Tensor, dim: int, rows: torch.Tensor,
 
 def scatter_add_rows_fixed_kernel(n_rows: int, rows: torch.Tensor,
                                   src: torch.Tensor):
-    """Launch ``trt_scatter_fixed`` (its levels) on PyTorch's current
-    stream; returns what ``scatter_add_rows_fixed_plain`` returns. Raises
-    on a CPU tensor or a failed launch."""
+    """Launch ``trt_scatter_fixed`` on PyTorch's current stream; returns
+    what ``scatter_add_rows_fixed_plain`` returns (rows outside
+    [0, n_rows) are left out). Two device ops (a cooperative launch that
+    zeroes the output, sorts and gathers the values in order; then every
+    level's sums), nothing read back to the host. Raises on a CPU tensor
+    or a failed launch."""
     if not src.is_cuda:
         raise ValueError("scatter_add_rows_fixed_kernel needs CUDA tensors")
     n = rows.numel()
     if src.dtype != torch.float32 or src.shape[0] != n:
         raise ValueError(f"src must be float32 with {n} rows, got "
                          f"{src.dtype} {tuple(src.shape)}")
-    if rows.device != src.device or rows.dtype not in (torch.int32, torch.int64):
-        raise ValueError("rows must be an integer tensor on src's device")
-    if n_rows >= 2**31 or n >= 2**31:
-        raise ValueError("too many rows for int32 row ids")
+    rows = _row_ids(rows, src.device)
+    if n_rows >= 2**31 or n >= 2**30:
+        raise ValueError("too many rows or values for int32 ids")
     C = math.prod(src.shape[1:])
     x = src.reshape(n, C).contiguous()
     dev = src.device
-    out = torch.zeros((n_rows, C), dtype=torch.float32, device=dev)
-    if n and C:
-        srow, perm = _sorted_rows(rows)
-        buf0 = torch.empty((n, C), dtype=torch.float32, device=dev)
-        buf1 = torch.empty_like(buf0) if n > FIXED_CHUNK else buf0
-        run = torch.empty((2, n), dtype=torch.int32, device=dev)
-        with torch.cuda.device(dev):
-            err = _lib().trt_scatter_fixed(
-                out.data_ptr(), srow.data_ptr(), perm.data_ptr(), x.data_ptr(),
-                buf0.data_ptr(), buf1.data_ptr(), run[0].data_ptr(),
-                run[1].data_ptr(), n, C, FIXED_CHUNK, n_rows,
-                torch.cuda.current_stream(dev).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"scatter_fixed kernel launch failed: cudaError {err}")
-        LAUNCHES["scatter_fixed"] += 1
+    if not (n and C):
+        return torch.zeros((n_rows, *src.shape[1:]), dtype=torch.float32, device=dev)
+    out = torch.empty((n_rows, C), dtype=torch.float32, device=dev)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        scratch = _scratch(lib, n, n_rows, C, True, dev)
+        err = lib.trt_scatter_fixed(
+            out.data_ptr(), rows.data_ptr(), int(rows.dtype == torch.int64),
+            x.data_ptr(), scratch.data_ptr(), n, C, n_rows, FIXED_CHUNK,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"scatter_fixed kernel launch failed: cudaError {err}")
+    LAUNCHES["scatter_fixed"] += 1
     return out.reshape(n_rows, *src.shape[1:])
 
 
