@@ -293,21 +293,24 @@ def _tests_module(name):
     return mod
 
 
-def _kernel_modules():
-    from tinyraytracing_tpu_torch.ops import (
-        bvh_intersect, scatter, slot_intersect, trace,
-    )
+TRACE_KERNELS = ("trace_closest", "trace_occlusion", "trace_near", "packet_dirs")
+KERNELS = (*TRACE_KERNELS, "bvh_intersect", "slot_intersect", "scatter_rows",
+           "scatter_fixed")
 
-    return (trace, bvh_intersect, slot_intersect, scatter)
+
+def _launches(rec, kernels=KERNELS):
+    """Each kernel's launches in a finished ``spans.recording()`` (the
+    wrappers' ``launches.<kernel>`` counters), 0 where it had none."""
+    return {k: rec.counts.get("launches." + k, 0) for k in kernels}
 
 
 def _counted(fn):
-    """(``fn()``, every kernel's launches in it, counted from 0)."""
-    mods = _kernel_modules()
-    for m in mods:
-        m.reset_launch_counts()
-    out = fn()
-    return out, {k: v for m in mods for k, v in m.LAUNCHES.items()}
+    """(``fn()``, every kernel's launches in it)."""
+    from tinyraytracing_tpu_torch.utils import spans
+
+    with spans.recording() as rec:
+        out = fn()
+    return out, _launches(rec)
 
 
 def _top_ops(events, k=3):
@@ -869,6 +872,7 @@ def phase_cli(dev, out_dir, refs):
     from tinyraytracing_tpu_torch import cli
     from tinyraytracing_tpu_torch.integrator import fused_queue
     from tinyraytracing_tpu_torch.ops import bvh
+    from tinyraytracing_tpu_torch.utils import spans
 
     seen, built = {}, []
     real = render_mod.render_fused_queue_chunked
@@ -888,19 +892,16 @@ def phase_cli(dev, out_dir, refs):
     render_mod.render_fused_queue_chunked = _timed_entry(
         "render_fused_queue_chunked", real, seen)
     bvh.attach_bvh = attach_timed
-    mods = _kernel_modules()
-    for m in mods:
-        m.reset_launch_counts()
     try:
-        with _captured_scatter(fused_queue, "scatter_add_rows",
-                               (SCATTER_PICK,)) as kept:
+        with (_captured_scatter(fused_queue, "scatter_add_rows", (SCATTER_PICK,)) as kept,
+              spans.recording() as rec):
             t0 = time.perf_counter()
             rc = cli.main(argv)
             wall = time.perf_counter() - t0
     finally:
         render_mod.render_fused_queue_chunked = real
         bvh.attach_bvh = real_attach
-    launches = {k: v for m in mods for k, v in m.LAUNCHES.items()}
+    launches = _launches(rec)
     refs["scatter rows"] = kept
     log(f"phase 3: cli {' '.join(argv[:-2])} (spp cut from config 3's 512 to 4 "
         f"only to fit the smoke's time limit; the chunked queue driver) -> rc {rc}")
@@ -1001,9 +1002,7 @@ def phase_cli_scan(dev, out_dir, refs, size=1024):
     expect = n_chunks * 16 * 2
     import tinyraytracing_tpu_torch.render as render_mod
     from tinyraytracing_tpu_torch import cli
-    from tinyraytracing_tpu_torch.ops import bvh_intersect as bi
-    from tinyraytracing_tpu_torch.ops import slot_intersect as si
-    from tinyraytracing_tpu_torch.ops import trace
+    from tinyraytracing_tpu_torch.utils import spans
 
     real_render = render_mod.render
     seen = {}
@@ -1027,15 +1026,14 @@ def phase_cli_scan(dev, out_dir, refs, size=1024):
         seen.clear()
         torch.cuda.reset_peak_memory_stats()
         render_mod.render = render_timed
-        for mod in (trace, bi, si):
-            mod.reset_launch_counts()
         try:
-            t0 = time.perf_counter()
-            rc = cli.main(argv)
-            wall = time.perf_counter() - t0
+            with spans.recording() as rec:
+                t0 = time.perf_counter()
+                rc = cli.main(argv)
+                wall = time.perf_counter() - t0
         finally:
             render_mod.render = real_render
-        counts = {**bi.LAUNCHES, **si.LAUNCHES, **trace.LAUNCHES}
+        counts = _launches(rec, ("bvh_intersect", "slot_intersect", *TRACE_KERNELS))
         peak = torch.cuda.max_memory_allocated()
         img, secs = seen["img"], seen["seconds"]
         mean = float(img.mean())
@@ -1128,7 +1126,7 @@ def phase_cli_persistent(dev, out_dir, refs):
     import tinyraytracing_tpu_torch.render as render_mod
     from tinyraytracing_tpu_torch import cli
     from tinyraytracing_tpu_torch.integrator.fused import render_fused_stats
-    from tinyraytracing_tpu_torch.ops import trace
+    from tinyraytracing_tpu_torch.utils import spans
 
     seen = {}
     real = render_mod.render_fused_image
@@ -1137,14 +1135,14 @@ def phase_cli_persistent(dev, out_dir, refs):
     torch.cuda.reset_peak_memory_stats()
     render_mod.render_fused_image = _timed_entry("render_fused_image",
                                                  render_fused_stats, seen)
-    trace.reset_launch_counts()
     try:
-        t0 = time.perf_counter()
-        rc = cli.main(argv)
-        wall = time.perf_counter() - t0
+        with spans.recording() as rec:
+            t0 = time.perf_counter()
+            rc = cli.main(argv)
+            wall = time.perf_counter() - t0
     finally:
         render_mod.render_fused_image = real
-    counts = dict(trace.LAUNCHES)
+    counts = _launches(rec, TRACE_KERNELS)
     log(f"phase 3c: cli {' '.join(argv[:-2])} (auto: the persistent renderer, "
         f"4 epochs of 262,144 lanes) -> rc {rc}")
     img, same = _render_report("persistent cornell", wall, seen, counts,
@@ -1165,7 +1163,7 @@ def phase_near_queue(dev):
     import tinyraytracing_tpu_torch.render as render_mod
     from tinyraytracing_tpu_torch.config import RenderConfig
     from tinyraytracing_tpu_torch.models.procedural import quad_grid
-    from tinyraytracing_tpu_torch.ops import trace
+    from tinyraytracing_tpu_torch.utils import spans
 
     scene, cam = quad_grid(100_000, 1024, 1024, device=dev)       # leaf 8
     real = render_mod.render_fused_queue_chunked
@@ -1179,14 +1177,14 @@ def phase_near_queue(dev):
         torch.cuda.reset_peak_memory_stats()
         render_mod.render_fused_queue_chunked = _timed_entry(
             "render_fused_queue_chunked", real, seen)
-        trace.reset_launch_counts()
         try:
-            t0 = time.perf_counter()
-            render_mod.render_image(scene, cam, cfg, spp=4, renderer="queue")
-            wall = time.perf_counter() - t0
+            with spans.recording() as rec:
+                t0 = time.perf_counter()
+                render_mod.render_image(scene, cam, cfg, spp=4, renderer="queue")
+                wall = time.perf_counter() - t0
         finally:
             render_mod.render_fused_queue_chunked = real
-        launches[order] = dict(trace.LAUNCHES)
+        launches[order] = _launches(rec, TRACE_KERNELS)
         img, same = _render_report(order, wall, seen, launches[order], real,
                                    ("trace_kernel", "packet_dirs_kernel"))
         imgs[order] = img.reshape(cam.height, cam.width, 3).cpu()
@@ -1356,22 +1354,14 @@ def _loss_and_grads(scene, cam, fields, cfg, key, target, counts=None,
     backward are recorded in it, each counted from 0."""
     from tinyraytracing_tpu_torch.diff import SceneParams, render_loss_fast
 
-    mods = _kernel_modules()
-    read = lambda: {k: v for m in mods for k, v in m.LAUNCHES.items()}
     p = SceneParams.init_from(scene, cam, *fields)
     for t in p.tensors():
         t.requires_grad_(True)
-    for m in mods:
-        m.reset_launch_counts()
-    loss = (loss_fn or render_loss_fast)(p, scene, cam, key, target, cfg,
-                                         DIFF_SPP, **kw)
+    loss, counts_fwd = _counted(lambda: (loss_fn or render_loss_fast)(
+        p, scene, cam, key, target, cfg, DIFF_SPP, **kw))
+    _, counts_bwd = _counted(loss.backward)
     if counts is not None:
-        counts["forward"] = read()
-        for m in mods:
-            m.reset_launch_counts()
-    loss.backward()
-    if counts is not None:
-        counts["backward"] = read()
+        counts.update(forward=counts_fwd, backward=counts_bwd)
     return loss.detach(), {f: getattr(p, f).grad for f in fields}
 
 

@@ -20,6 +20,7 @@ from tinyraytracing_tpu_torch.config import RenderConfig
 from tinyraytracing_tpu_torch.models.procedural import cornell_box, quad_grid
 from tinyraytracing_tpu_torch.ops import bvh_intersect, intersect, slot_intersect, trace
 from tinyraytracing_tpu_torch.ops.bvh import attach_bvh
+from tinyraytracing_tpu_torch.utils import spans
 # by its own name: the card's machine may have another package named tests
 from torch_slot_emulate import (
     extreme_payload, tie_rays, tie_scene, tie_shadow_rays,
@@ -105,23 +106,23 @@ def test_packet_dirs_kernel_bitwise_equal_plain(device):
 def test_wrapper_launches_kernel_on_cuda(device):
     scene = _scene("cornell", device)
     x = torch.zeros(256, device=device)
-    trace.reset_launch_counts()
-    trace.fused_trace_planes(scene, x + 278, x + 273, x - 500, x, x, x + 1,
-                             RenderConfig())
-    trace.fused_trace_planes(scene, x + 278, x + 273, x - 500, x, x, x + 1,
-                             RenderConfig(), t_bound=x + 900,
-                             target_mtl=x, query="occlusion")
-    assert trace.LAUNCHES == {"trace_closest": 1, "trace_occlusion": 1,
-                              "trace_near": 0, "packet_dirs": 0}
+    with spans.recording() as rec:
+        trace.fused_trace_planes(scene, x + 278, x + 273, x - 500, x, x, x + 1,
+                                 RenderConfig())
+        trace.fused_trace_planes(scene, x + 278, x + 273, x - 500, x, x, x + 1,
+                                 RenderConfig(), t_bound=x + 900,
+                                 target_mtl=x, query="occlusion")
+    assert rec.counts == {"launches.trace_closest": 1, "launches.trace_occlusion": 1}
     # near on cornell: closest hit walks binary (preorder), occlusion wide
     near = RenderConfig(walk_order="near")
-    trace.fused_trace_planes(scene, x + 278, x + 273, x - 500, x, x, x + 1,
-                             near)
-    trace.fused_trace_planes(scene, x + 278, x + 273, x - 500, x, x, x + 1,
-                             near, t_bound=x + 900, target_mtl=x,
-                             query="occlusion")
-    assert trace.LAUNCHES == {"trace_closest": 2, "trace_occlusion": 1,
-                              "trace_near": 1, "packet_dirs": 1}
+    with spans.recording() as rec:
+        trace.fused_trace_planes(scene, x + 278, x + 273, x - 500, x, x, x + 1,
+                                 near)
+        trace.fused_trace_planes(scene, x + 278, x + 273, x - 500, x, x, x + 1,
+                                 near, t_bound=x + 900, target_mtl=x,
+                                 query="occlusion")
+    assert rec.counts == {"launches.trace_closest": 1, "launches.trace_near": 1,
+                          "launches.packet_dirs": 1}
 
 
 @pytest.mark.parametrize("shadow", [False, True])
@@ -197,13 +198,11 @@ def test_auto_intersect_launches_kernels_on_cuda(device):
     scene = _scene("cornell", device)
     o = torch.tensor([[278.0, 273.0, -500.0]], device=device).expand(256, 3)
     d = torch.tensor([[0.0, 0.0, 1.0]], device=device).expand(256, 3)
-    bvh_intersect.reset_launch_counts()
-    slot_intersect.reset_launch_counts()
-    a = intersect.intersect(scene, o, d, RenderConfig())
-    b = intersect.intersect(dataclasses.replace(scene, bvh=None), o, d,
-                            RenderConfig())
-    assert bvh_intersect.LAUNCHES == {"bvh_intersect": 1}
-    assert slot_intersect.LAUNCHES == {"slot_intersect": 1}
+    with spans.recording() as rec:
+        a = intersect.intersect(scene, o, d, RenderConfig())
+        b = intersect.intersect(dataclasses.replace(scene, bvh=None), o, d,
+                                RenderConfig())
+    assert rec.counts == {"launches.bvh_intersect": 1, "launches.slot_intersect": 1}
     assert torch.equal(a.t, b.t) and torch.equal(a.idx, b.idx)
 
 
@@ -223,13 +222,14 @@ def test_fused_trace_diff_on_the_card(device):
         p = SceneParams.init_from(s, cam, "kd", "vertex_offset")
         for t in p.tensors():
             t.requires_grad_(True)
-        trace.reset_launch_counts()
-        loss = render_loss_fast(p, s, cam, master_key_data(1),
-                                torch.zeros(16, 16, 3, device=dev),
-                                RenderConfig(max_depth=3), 2)
-        fwd = trace.LAUNCHES["trace_closest"]
-        loss.backward()
-        bwd = trace.LAUNCHES["trace_closest"] - fwd
+        with spans.recording() as rec:
+            loss = render_loss_fast(p, s, cam, master_key_data(1),
+                                    torch.zeros(16, 16, 3, device=dev),
+                                    RenderConfig(max_depth=3), 2)
+        fwd = rec.counts.get("launches.trace_closest", 0)
+        with spans.recording() as rec:
+            loss.backward()
+        bwd = rec.counts.get("launches.trace_closest", 0)
         assert (fwd > 0 and bwd > 0) == (dev == device)
         grads[str(dev)] = [t.grad.cpu() for t in p.tensors()]
     for a, b in zip(grads[str(device)], grads["cpu"]):

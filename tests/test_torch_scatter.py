@@ -35,6 +35,7 @@ import torch
 
 from tinyraytracing_tpu_torch.ops import scatter
 from tinyraytracing_tpu_torch.ops.lookup import gather_rows
+from tinyraytracing_tpu_torch.utils import spans
 # by its own name: the card's machine may have another package named tests
 import torch_scatter_emulate as emu
 
@@ -278,9 +279,9 @@ def test_rows_kernel_bitwise_equal_plain(dim, device):
     dst = torch.from_numpy(_values(rng, n_pix + 7, 3)).to(device)
     if dim == 1:
         src, dst = src.T.contiguous(), dst.T.contiguous()
-    scatter.reset_launch_counts()
-    got = scatter.scatter_add_rows(dst.clone(), dim, rows, src, keep=n_pix)
-    assert scatter.LAUNCHES["scatter_rows"] == 1
+    with spans.recording() as rec:
+        got = scatter.scatter_add_rows(dst.clone(), dim, rows, src, keep=n_pix)
+    assert rec.counts.get("launches.scatter_rows", 0) == 1
     want = scatter.scatter_add_rows_plain(dst.clone(), dim, rows, src, keep=n_pix)
     keep = (slice(0, n_pix),) if dim == 0 else (slice(None), slice(0, n_pix))
     assert torch.equal(_bits(got[keep]), _bits(want[keep]))
@@ -304,9 +305,9 @@ def _rows_call(case, device):
                                   *emu.ROWS_CASES))
 def test_rows_kernel_bitwise_equal_plain_main_paths_and_edges(case, device):
     rows, dst, src, dim, keep = _rows_call(case, device)
-    scatter.reset_launch_counts()
-    got = scatter.scatter_add_rows(dst.clone(), dim, rows, src, keep=keep)
-    assert scatter.LAUNCHES["scatter_rows"] == (1 if rows.numel() else 0)
+    with spans.recording() as rec:
+        got = scatter.scatter_add_rows(dst.clone(), dim, rows, src, keep=keep)
+    assert rec.counts.get("launches.scatter_rows", 0) == (1 if rows.numel() else 0)
     want = scatter.scatter_add_rows_plain(dst.clone(), dim, rows, src, keep=keep)
     assert torch.equal(_bits(got), _bits(want))
     # int32 row ids give the same bits
@@ -324,10 +325,10 @@ def test_fixed_kernel_bitwise_equal_plain(n, n_rows, c, device):
     rng = np.random.default_rng(n + n_rows)
     rows = torch.from_numpy(rng.integers(0, n_rows, n)).to(device)
     src = torch.from_numpy(_values(rng, n, c)).to(device)
-    scatter.reset_launch_counts()
-    got = scatter.scatter_add_rows_fixed(n_rows, rows, src)
-    again = scatter.scatter_add_rows_fixed(n_rows, rows, src)
-    assert scatter.LAUNCHES["scatter_fixed"] == 2
+    with spans.recording() as rec:
+        got = scatter.scatter_add_rows_fixed(n_rows, rows, src)
+        again = scatter.scatter_add_rows_fixed(n_rows, rows, src)
+    assert rec.counts.get("launches.scatter_fixed", 0) == 2
     want = scatter.scatter_add_rows_fixed_plain(n_rows, rows, src)
     assert torch.equal(_bits(got), _bits(want))
     assert torch.equal(_bits(got), _bits(again))
@@ -423,9 +424,9 @@ def test_queue_renders_repeat_bitwise(device):
 
     scene, cam = quad_grid(6000, 64, 64, device=device)
     cfg, key = RenderConfig(), master_key_data(0)
-    scatter.reset_launch_counts()
-    a, ra = render_fused_queue(scene, cam, key, cfg, 4, lanes=4096)
-    assert scatter.LAUNCHES["scatter_rows"] > 0
+    with spans.recording() as rec:
+        a, ra = render_fused_queue(scene, cam, key, cfg, 4, lanes=4096)
+    assert rec.counts.get("launches.scatter_rows", 0) > 0
     b, rb = render_fused_queue(scene, cam, key, cfg, 4, lanes=4096)
     assert torch.equal(_bits(a), _bits(b)) and float(ra) == float(rb)
 
@@ -442,9 +443,9 @@ def test_regen_renders_repeat_bitwise(device):
     scene, cam = cornell_box(48, 48, device=device)
     scene = attach_bvh(scene, cfg)
     key = master_key_data(3)
-    scatter.reset_launch_counts()
-    a, _ = render_regen(scene, cam, key, cfg, 4, lanes=2048)
-    assert scatter.LAUNCHES["scatter_rows"] > 0
+    with spans.recording() as rec:
+        a, _ = render_regen(scene, cam, key, cfg, 4, lanes=2048)
+    assert rec.counts.get("launches.scatter_rows", 0) > 0
     b, _ = render_regen(scene, cam, key, cfg, 4, lanes=2048)
     assert torch.equal(_bits(a), _bits(b))
 
@@ -480,10 +481,10 @@ def test_fast_loss_gradients_repeat_bitwise(device):
     cfg = RenderConfig(max_depth=3)
     scene, cam = cornell_box(64, 64, device=device)
     scene = attach_bvh(scene, cfg)
-    scatter.reset_launch_counts()
-    _grads_twice(render_loss_fast, scene, cam, cfg,
-                 ("kd", "vertex_offset", "eye"), device)
-    assert scatter.LAUNCHES["scatter_fixed"] > 0
+    with spans.recording() as rec:
+        _grads_twice(render_loss_fast, scene, cam, cfg,
+                     ("kd", "vertex_offset", "eye"), device)
+    assert rec.counts.get("launches.scatter_fixed", 0) > 0
 
 
 @pytest.mark.cuda

@@ -56,6 +56,7 @@ from tinyraytracing_tpu_torch.ops.rng import (
 from tinyraytracing_tpu_torch.ops.trace import (
     _INF, fused_trace_planes, occlusion_trace_segmented,
 )
+from tinyraytracing_tpu_torch.utils.spans import span
 
 # the scene arrays the replay differentiates, in fused_trace_diff's order
 GEOMETRY = ("v0", "v1", "v2", "n0", "n1", "n2", "t0", "t1", "t2")
@@ -190,8 +191,13 @@ def render_diff(scene, cam, key, config: RenderConfig, spp: int,
                                 - eye[k] for k in range(3)))
         return tuple(eye[k].expand(R) for k in range(3)), d, (pk0, pk1)
 
-    def bounce(b, pk0, pk1, active, ox, oy, oz, dx, dy, dz, ray_type,
-               tr0, tr1, tr2, rd0, rd1, rd2, rays):
+    def bounce(*carry):
+        # a span over each call: the forward's and each checkpoint recompute's
+        with span("diff.bounce"):
+            return bounce_body(*carry)
+
+    def bounce_body(b, pk0, pk1, active, ox, oy, oz, dx, dy, dz, ray_type,
+                    tr0, tr1, tr2, rd0, rd1, rd2, rays):
         o, d, thr, rad = (ox, oy, oz), (dx, dy, dz), (tr0, tr1, tr2), (rd0, rd1, rd2)
         o_m = vec.where(active, o, far3)
         t, pnx, pny, pnz, tcu, tcv, mtl, em, _ = fused_trace_diff(
@@ -321,7 +327,8 @@ def render_loss_fast(params, scene, cam, key, target, config: RenderConfig,
     from tinyraytracing_tpu_torch.diff import edge
     from tinyraytracing_tpu_torch.diff.inverse import apply_params
 
-    s2, c2 = apply_params(scene, cam, params)
+    with span("diff.refit"):
+        s2, c2 = apply_params(scene, cam, params)
     img = render_diff(s2, c2, key, config, spp)
     loss = torch.mean((img - target) ** 2)
     if edge_samples or shadow_edge_samples:

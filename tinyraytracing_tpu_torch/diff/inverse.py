@@ -24,6 +24,7 @@ from tinyraytracing_tpu_torch.models.camera import Camera
 from tinyraytracing_tpu_torch.models.scene import Scene
 from tinyraytracing_tpu_torch.ops.linalg import cross, dot
 from tinyraytracing_tpu_torch.render import render
+from tinyraytracing_tpu_torch.utils.spans import span
 
 PARAM_FIELDS = ("kd", "radiance", "vertex_offset", "eye", "lookat")
 
@@ -176,7 +177,8 @@ def render_loss(params: SceneParams, scene: Scene, cam: Camera, key, target,
     ``key``: (k0, k1) key words (``ops.rng.master_key_data``). Raises for
     geometry or camera gradients through a CUDA intersect kernel
     (``check_differentiable``)."""
-    s2, c2 = apply_params(scene, cam, params)
+    with span("diff.refit"):
+        s2, c2 = apply_params(scene, cam, params)
     check_differentiable(s2, c2, config)
     img = render(s2, c2, key, config, spp)
     return torch.mean((img - target) ** 2)
@@ -195,10 +197,14 @@ def make_train_step(scene, cam, target, config: RenderConfig, spp: int,
 
     def step(state, key):
         params, opt = state
-        opt.zero_grad(set_to_none=True)
-        loss = loss_fn(params, scene, cam, key, target, config, spp)
-        loss.backward()
-        opt.step()
+        with span("diff.step"):
+            opt.zero_grad(set_to_none=True)
+            with span("diff.loss"):
+                loss = loss_fn(params, scene, cam, key, target, config, spp)
+            with span("diff.backward"):
+                loss.backward()
+            with span("diff.update"):
+                opt.step()
         return (params, opt), loss.detach()
 
     def init(params: SceneParams):

@@ -40,6 +40,7 @@ from tinyraytracing_tpu_torch.ops.lookup import (
 from tinyraytracing_tpu_torch.ops.rng import bits_to_uniform, bounce_uniforms, path_keys
 from tinyraytracing_tpu_torch.ops.sampling import PI, f32_transcendental
 from tinyraytracing_tpu_torch.ops.trace import fused_trace_planes
+from tinyraytracing_tpu_torch.utils.spans import count, span
 
 # parked rays: origin far outside any scene AABB, so every slab test fails
 _FAR = 1.0e30
@@ -338,6 +339,7 @@ def render_fused(scene, cam: Camera, key, config: RenderConfig, spp: int,
     rays_traced = torch.zeros((), dtype=f32, device=dev)
 
     for e in range(n_epochs):
+        count("fused.epochs")
         slot = slot_base + e * R + lane
         in_range = (lane + e * R < n_slots) & (slot < n_pix_total)
         # dynamic_slice clamps its start so the window stays in bounds
@@ -361,117 +363,120 @@ def render_fused(scene, cam: Camera, key, config: RenderConfig, spp: int,
             m = active.any() | (in_range & (samples_done < spp)).any()
             for p in pend_ok:
                 m = m | p.any()
-            return bool(m)
+            with span("fused.more.sync"):
+                return bool(m)
 
         while it < max_iters and more():
-            # --- regenerate: start the pixel's next sample on dead lanes
-            can = ~active & in_range & (samples_done < spp)
-            path_id = torch.where(can, pixel * spp + samples_done, 0)
-            norg, nd, npk = camera_ray(path_id // spp, path_id)
-            pkd = (torch.where(can, npk[0], pkd[0]),
-                   torch.where(can, npk[1], pkd[1]))
-            o = vec.where(can, norg, o)
-            d = vec.where(can, nd, d)
-            ray_type = torch.where(can, CAMERA, ray_type)
-            thr = vec.where(can, (one, one, one), thr)
-            rad = vec.where(can, z3, rad)
-            bounce = torch.where(can, 0, bounce)
-            samples_done = samples_done + can.to(i64)
-            active = active | can
-            o = vec.where(active, o, far3)
+            count("fused.iterations")
+            with span("fused.iter"):
+                # --- regenerate: start the pixel's next sample on dead lanes
+                can = ~active & in_range & (samples_done < spp)
+                path_id = torch.where(can, pixel * spp + samples_done, 0)
+                norg, nd, npk = camera_ray(path_id // spp, path_id)
+                pkd = (torch.where(can, npk[0], pkd[0]),
+                       torch.where(can, npk[1], pkd[1]))
+                o = vec.where(can, norg, o)
+                d = vec.where(can, nd, d)
+                ray_type = torch.where(can, CAMERA, ray_type)
+                thr = vec.where(can, (one, one, one), thr)
+                rad = vec.where(can, z3, rad)
+                bounce = torch.where(can, 0, bounce)
+                samples_done = samples_done + can.to(i64)
+                active = active | can
+                o = vec.where(active, o, far3)
 
-            # --- ONE trace: [bounce rays | L shadow-ray groups], shadow
-            # legs bounded at their light distance, dead lanes at 0
-            cat = lambda main, sh: torch.cat([main] + sh)
-            tb = cat(torch.where(active, c(_INF), c(0.0)),
-                     [torch.where(pend_ok[l], pend_dist[l], c(0.0))
-                      for l in range(L)])
-            tg = cat(torch.full((R,), -2.0, dtype=f32, device=dev),
-                     [torch.where(pend_ok[l], light_mtl_f[l], c(-2.0))
-                      for l in range(L)])
-            t_all, pnx_a, pny_a, pnz_a, tcu_a, tcv_a, mtl_a, em_a = (
-                fused_trace_planes(
-                    scene, *(cat(o[k], [s[k] for s in sh_o]) for k in range(3)),
-                    *(cat(d[k], [s[k] for s in sh_d]) for k in range(3)),
-                    config, t_bound=tb, target_mtl=tg))
-            ray_count = ray_count + active.to(f32)
-            for l in range(L):
-                ray_count = ray_count + pend_ok[l].to(f32)
+                # --- ONE trace: [bounce rays | L shadow-ray groups], shadow
+                # legs bounded at their light distance, dead lanes at 0
+                cat = lambda main, sh: torch.cat([main] + sh)
+                tb = cat(torch.where(active, c(_INF), c(0.0)),
+                         [torch.where(pend_ok[l], pend_dist[l], c(0.0))
+                          for l in range(L)])
+                tg = cat(torch.full((R,), -2.0, dtype=f32, device=dev),
+                         [torch.where(pend_ok[l], light_mtl_f[l], c(-2.0))
+                          for l in range(L)])
+                t_all, pnx_a, pny_a, pnz_a, tcu_a, tcv_a, mtl_a, em_a = (
+                    fused_trace_planes(
+                        scene, *(cat(o[k], [s[k] for s in sh_o]) for k in range(3)),
+                        *(cat(d[k], [s[k] for s in sh_d]) for k in range(3)),
+                        config, t_bound=tb, target_mtl=tg))
+                ray_count = ray_count + active.to(f32)
+                for l in range(L):
+                    ray_count = ray_count + pend_ok[l].to(f32)
 
-            # --- resolve LAST iteration's NEE with this trace's shadow legs
-            for l in range(L):
-                sl = slice((1 + l) * R, (2 + l) * R)
-                if config.shadow_test == "mtl":
-                    vis = mtl_a[sl] == light_mtl_f[l]      # miss -1, killed -3
+                # --- resolve LAST iteration's NEE with this trace's shadow legs
+                for l in range(L):
+                    sl = slice((1 + l) * R, (2 + l) * R)
+                    if config.shadow_test == "mtl":
+                        vis = mtl_a[sl] == light_mtl_f[l]      # miss -1, killed -3
+                    else:
+                        vis = ~((mtl_a[sl] == -3.0) | (
+                            (mtl_a[sl] >= 0.0)
+                            & (t_all[sl] < pend_dist[l] - c(1e-3))))
+                    add = pend_ok[l] & vis
+                    accum = tuple(accum[k] + torch.where(
+                        add, pend_c[l][k] * inv_spp, zero) for k in range(3))
+
+                # --- shade the bounce leg
+                t, m = t_all[:R], mtl_a[:R]
+                hit = m >= 0.0
+                point = vec.add(o, vec.scale(d, t))
+                pn = vec.normalize((pnx_a[:R], pny_a[:R], pnz_a[:R]))
+                hit_emissive = hit & (em_a[:R] > 0.5)
+                include = (ray_type == CAMERA) | (ray_type == TRANSMISSION)
+                emit = active & hit_emissive & include
+                mat = _material_planes(scene, m)
+                mrad = mat["rad"]
+                rad = tuple(rad[k] + torch.where(emit, thr[k] * mrad[k], zero)
+                            for k in range(3))
+                shade_mask = active & hit & ~hit_emissive
+                kd_val = _tex_kd(scene, mat, tcu_a[:R], tcv_a[:R], mat["kd"])
+                ks, ns = mat["ks"], mat["ns"]
+                wi = vec.neg(d)
+
+                # --- per-(path, bounce) uniforms: 4 per light, 5 for RR/BSDF
+                draws = bounce_uniforms(pkd[0], pkd[1], bounce, 4 * L + 5)
+
+                # --- queue THIS bounce's NEE (resolved next iteration),
+                # pre-scaled by the throughput
+                pend_ok, pend_c, pend_dist, sh_o, sh_d = [], [], [], [], []
+                for l in range(L):
+                    wo, contrib, distl, okl = _nee_geometry(
+                        scene, config, l, point, pn, wi, kd_val, ks, ns,
+                        draws[4 * l + 0], draws[4 * l + 1],
+                        draws[4 * l + 2], draws[4 * l + 3], shade_mask)
+                    pend_ok.append(okl)
+                    pend_c.append(vec.mul(thr, contrib))
+                    pend_dist.append(distl)
+                    sh_o.append(vec.where(okl, point, far3))
+                    sh_d.append(vec.where(okl, wo, up))
+
+                # --- Russian roulette + BSDF continuation
+                u = [draws[4 * L + i] for i in range(5)]
+                survive = (shade_mask & (u[0] < c(config.p_rr))
+                           & (bounce + 1 < config.max_depth))
+                new_dir, new_type = sample_bsdf_planar(
+                    d, pn, mat["kd"], ks, ns, mat["ni"], u[1], u[2], u[3], u[4])
+                alive_next = survive & (new_type != INVALID)
+                if config.specular_weight == "ref":
+                    ds_weight = kd_val
                 else:
-                    vis = ~((mtl_a[sl] == -3.0) | (
-                        (mtl_a[sl] >= 0.0)
-                        & (t_all[sl] < pend_dist[l] - c(1e-3))))
-                add = pend_ok[l] & vis
-                accum = tuple(accum[k] + torch.where(
-                    add, pend_c[l][k] * inv_spp, zero) for k in range(3))
+                    ds_weight = vec.where(new_type == SPECULAR, ks, kd_val)
+                weight = vec.where(new_type == TRANSMISSION, mat["tr"], ds_weight)
+                inv_prr = c(1.0 / config.p_rr)
+                thr = vec.where(
+                    alive_next,
+                    tuple(thr[k] * weight[k] * inv_prr for k in range(3)), thr)
+                o = vec.where(alive_next, point, o)
+                d = vec.where(alive_next, new_dir, up)
+                ray_type = torch.where(alive_next, new_type, ray_type)
+                bounce = bounce + 1
 
-            # --- shade the bounce leg
-            t, m = t_all[:R], mtl_a[:R]
-            hit = m >= 0.0
-            point = vec.add(o, vec.scale(d, t))
-            pn = vec.normalize((pnx_a[:R], pny_a[:R], pnz_a[:R]))
-            hit_emissive = hit & (em_a[:R] > 0.5)
-            include = (ray_type == CAMERA) | (ray_type == TRANSMISSION)
-            emit = active & hit_emissive & include
-            mat = _material_planes(scene, m)
-            mrad = mat["rad"]
-            rad = tuple(rad[k] + torch.where(emit, thr[k] * mrad[k], zero)
-                        for k in range(3))
-            shade_mask = active & hit & ~hit_emissive
-            kd_val = _tex_kd(scene, mat, tcu_a[:R], tcv_a[:R], mat["kd"])
-            ks, ns = mat["ks"], mat["ns"]
-            wi = vec.neg(d)
-
-            # --- per-(path, bounce) uniforms: 4 per light, 5 for RR/BSDF
-            draws = bounce_uniforms(pkd[0], pkd[1], bounce, 4 * L + 5)
-
-            # --- queue THIS bounce's NEE (resolved next iteration),
-            # pre-scaled by the throughput
-            pend_ok, pend_c, pend_dist, sh_o, sh_d = [], [], [], [], []
-            for l in range(L):
-                wo, contrib, distl, okl = _nee_geometry(
-                    scene, config, l, point, pn, wi, kd_val, ks, ns,
-                    draws[4 * l + 0], draws[4 * l + 1],
-                    draws[4 * l + 2], draws[4 * l + 3], shade_mask)
-                pend_ok.append(okl)
-                pend_c.append(vec.mul(thr, contrib))
-                pend_dist.append(distl)
-                sh_o.append(vec.where(okl, point, far3))
-                sh_d.append(vec.where(okl, wo, up))
-
-            # --- Russian roulette + BSDF continuation
-            u = [draws[4 * L + i] for i in range(5)]
-            survive = (shade_mask & (u[0] < c(config.p_rr))
-                       & (bounce + 1 < config.max_depth))
-            new_dir, new_type = sample_bsdf_planar(
-                d, pn, mat["kd"], ks, ns, mat["ni"], u[1], u[2], u[3], u[4])
-            alive_next = survive & (new_type != INVALID)
-            if config.specular_weight == "ref":
-                ds_weight = kd_val
-            else:
-                ds_weight = vec.where(new_type == SPECULAR, ks, kd_val)
-            weight = vec.where(new_type == TRANSMISSION, mat["tr"], ds_weight)
-            inv_prr = c(1.0 / config.p_rr)
-            thr = vec.where(
-                alive_next,
-                tuple(thr[k] * weight[k] * inv_prr for k in range(3)), thr)
-            o = vec.where(alive_next, point, o)
-            d = vec.where(alive_next, new_dir, up)
-            ray_type = torch.where(alive_next, new_type, ray_type)
-            bounce = bounce + 1
-
-            # --- finished paths: emissive radiance into the lane's pixel
-            finished = active & ~alive_next
-            accum = tuple(accum[k] + torch.where(finished, rad[k] * inv_spp,
-                                                 zero) for k in range(3))
-            active = alive_next
-            it += 1
+                # --- finished paths: emissive radiance into the lane's pixel
+                finished = active & ~alive_next
+                accum = tuple(accum[k] + torch.where(finished, rad[k] * inv_spp,
+                                                     zero) for k in range(3))
+                active = alive_next
+                it += 1
 
         img[e * R:(e + 1) * R] = torch.stack(accum, dim=-1)
         rays_traced = rays_traced + torch.sum(ray_count)

@@ -27,6 +27,12 @@ and can snapshot that state to disk and resume from it
 (``utils/checkpoint.py``). A chunk boundary changes no arithmetic, so a
 chunked or resumed render is bitwise the one-shot render, on the CPU and
 on the card.
+
+Each iteration records the spans ``queue.*`` (``utils/spans.py``): the
+iteration and its refill, trace, draws, shadow and scatter stretches, and
+the two host reads that wait on the device (``queue.refill.sync``,
+``queue.more.sync``); it counts iterations, paths started and, under
+``queue_refill="lane"``, lanes and lanes active after the refill.
 """
 
 from __future__ import annotations
@@ -60,6 +66,7 @@ from tinyraytracing_tpu_torch.ops.trace import (
     fused_trace_planes,
     occlusion_trace_segmented,
 )
+from tinyraytracing_tpu_torch.utils.spans import count, span
 
 _INF = 3.0e38
 _KEY_MAX = 2**31 - 1
@@ -166,173 +173,195 @@ def _queue_setup(scene, cam: Camera, key, config: RenderConfig, spp: int,
         )
 
     def more(s):
-        return s["it"] < max_iters and (s["counter"] < n_paths
-                                        or bool(s["active"].any()))
+        if s["it"] >= max_iters:
+            return False
+        if s["counter"] < n_paths:
+            return True
+        with span("queue.more.sync"):
+            return bool(s["active"].any())
 
     def body(s):
         """One iteration: the lane state after it (``img`` is updated in
         place)."""
-        it, counter, active = s["it"], s["counter"], s["active"]
-        path_id, pix, bounce = s["path_id"], s["pix"], s["bounce"]
-        o, d, ray_type = s["o"], s["d"], s["ray_type"]
-        thr, rad, pkd = s["thr"], s["rad"], s["pkd"]
-        img, ray_count = s["img"], s["ray_count"]
-        # --- optional periodic resort (config.queue_resort_every)
-        if resort_every > 0 and it % resort_every == 0:
-            if resort_key == "morton":
-                key_ = _morton_key(o, aabb_lo, aabb_inv, config.morton_cells)
-            elif resort_key == "path_octant":
-                octant = ((d[0] < 0).to(i64) + 2 * (d[1] < 0).to(i64)
-                          + 4 * (d[2] < 0).to(i64))
-                base = torch.min(torch.where(
-                    active, path_id, torch.full_like(path_id, _KEY_MAX)))
-                rel = torch.clamp_min(path_id - base, 0)
-                key_ = ((rel >> 13) << 16) + (octant << 13) + (rel & 8191)
-            else:
-                key_ = path_id
-            key_ = torch.where(active, key_, torch.full_like(key_, _KEY_MAX))
-            _, perm = torch.sort(key_, stable=True)
-            p = lambda x: x[perm]
-            active, path_id, pix, bounce = p(active), p(path_id), p(pix), p(bounce)
-            o, d = tuple(map(p, o)), tuple(map(p, d))
-            ray_type, ray_count = p(ray_type), p(ray_count)
-            thr, rad, pkd = tuple(map(p, thr)), tuple(map(p, rad)), tuple(map(p, pkd))
+        with span("queue.iter"):
+            count("queue.iterations")
+            it, counter, active = s["it"], s["counter"], s["active"]
+            path_id, pix, bounce = s["path_id"], s["pix"], s["bounce"]
+            o, d, ray_type = s["o"], s["d"], s["ray_type"]
+            thr, rad, pkd = s["thr"], s["rad"], s["pkd"]
+            img, ray_count = s["img"], s["ray_count"]
+            # --- optional periodic resort (config.queue_resort_every)
+            if resort_every > 0 and it % resort_every == 0:
+                if resort_key == "morton":
+                    key_ = _morton_key(o, aabb_lo, aabb_inv, config.morton_cells)
+                elif resort_key == "path_octant":
+                    octant = ((d[0] < 0).to(i64) + 2 * (d[1] < 0).to(i64)
+                              + 4 * (d[2] < 0).to(i64))
+                    base = torch.min(torch.where(
+                        active, path_id, torch.full_like(path_id, _KEY_MAX)))
+                    rel = torch.clamp_min(path_id - base, 0)
+                    key_ = ((rel >> 13) << 16) + (octant << 13) + (rel & 8191)
+                else:
+                    key_ = path_id
+                key_ = torch.where(active, key_, torch.full_like(key_, _KEY_MAX))
+                _, perm = torch.sort(key_, stable=True)
+                p = lambda x: x[perm]
+                active, path_id, pix, bounce = p(active), p(path_id), p(pix), p(bounce)
+                o, d = tuple(map(p, o)), tuple(map(p, d))
+                ray_type, ray_count = p(ray_type), p(ray_count)
+                thr, rad, pkd = tuple(map(p, thr)), tuple(map(p, rad)), tuple(map(p, pkd))
 
-        # --- regenerate dead lanes from the global queue (tile order)
-        dead = ~active
-        if config.queue_refill == "row":
-            row_dead = torch.all(dead.reshape(-1, 128), dim=1)
-            elig = row_dead[:, None].expand(R // 128, 128).reshape(-1)
-        else:
-            elig = dead
-        rank = torch.cumsum(elig.to(i64), 0) - 1
-        new_id = counter + rank
-        can = elig & (new_id < n_paths) & (path_lo + new_id < total_all)
-        path_id = torch.where(can, new_id, path_id)
-        norg, nd, npk, npix = camera_ray(path_lo + torch.clamp_min(path_id, 0))
-        o = vec.where(can, norg, o)
-        d = vec.where(can, nd, d)
-        pkd = (torch.where(can, npk[0], pkd[0]), torch.where(can, npk[1], pkd[1]))
-        pix = torch.where(can, npix, pix)
-        ray_type = torch.where(can, CAMERA, ray_type)
-        thr = vec.where(can, (one, one, one), thr)
-        rad = vec.where(can, (zero, zero, zero), rad)
-        bounce = torch.where(can, 0, bounce)
-        active = active | can
-        counter = min(counter + int(elig.sum()), n_paths)
+            with span("queue.refill"):
+                # --- regenerate dead lanes from the global queue (tile order)
+                dead = ~active
+                if config.queue_refill == "row":
+                    row_dead = torch.all(dead.reshape(-1, 128), dim=1)
+                    elig = row_dead[:, None].expand(R // 128, 128).reshape(-1)
+                else:
+                    elig = dead
+                rank = torch.cumsum(elig.to(i64), 0) - 1
+                new_id = counter + rank
+                can = elig & (new_id < n_paths) & (path_lo + new_id < total_all)
+                path_id = torch.where(can, new_id, path_id)
+                norg, nd, npk, npix = camera_ray(path_lo + torch.clamp_min(path_id, 0))
+                o = vec.where(can, norg, o)
+                d = vec.where(can, nd, d)
+                pkd = (torch.where(can, npk[0], pkd[0]), torch.where(can, npk[1], pkd[1]))
+                pix = torch.where(can, npix, pix)
+                ray_type = torch.where(can, CAMERA, ray_type)
+                thr = vec.where(can, (one, one, one), thr)
+                rad = vec.where(can, (zero, zero, zero), rad)
+                bounce = torch.where(can, 0, bounce)
+                active = active | can
+                with span("queue.refill.sync"):
+                    n_elig = int(elig.sum())
+                # paths started: ids below both the slice end and the global count
+                started = max(0, min(counter + n_elig, n_paths, total_all - path_lo)
+                              - counter)
+                count("queue.paths_started", started)
+                if config.queue_refill == "lane":
+                    # lanes active after the refill (under "row" the host does
+                    # not know how many of the dead lanes were eligible)
+                    count("queue.lanes", R)
+                    count("queue.lanes_active", R - n_elig + started)
+                counter = min(counter + n_elig, n_paths)
 
-        o = vec.where(active, o, far3)
+            with span("queue.trace"):
+                o = vec.where(active, o, far3)
 
-        # --- dispatch 1: bounce rays (dead lanes bound at 0: instant prune)
-        t, pnx, pny, pnz, tcu, tcv, mtl, em = fused_trace_planes(
-            scene, o[0], o[1], o[2], d[0], d[1], d[2], config,
-            t_bound=torch.where(active, c(_INF), c(0.0)),
-        )
-        hit = mtl >= 0.0
-        ray_count = ray_count + active.to(f32)
-
-        point = vec.add(o, vec.scale(d, t))
-        pn = vec.normalize((pnx, pny, pnz))
-
-        hit_emissive = hit & (em > 0.5)
-        include = (ray_type == CAMERA) | (ray_type == TRANSMISSION)
-        emit = active & hit_emissive & include
-        mat = _material_planes(scene, mtl)
-        mrad = mat["rad"]
-        rad = tuple(rad[k] + torch.where(emit, thr[k] * mrad[k], zero)
-                    for k in range(3))
-        shade_mask = active & hit & ~hit_emissive
-
-        kd_val = _tex_kd(scene, mat, tcu, tcv, mat["kd"])
-        ks = mat["ks"]
-        ns = mat["ns"]
-        wi = vec.neg(d)
-
-        # --- per-(path, bounce) uniforms (path-indexed counter RNG)
-        draws = bounce_uniforms(pkd[0], pkd[1], bounce, 4 * L + 5)
-
-        # --- dispatch 2: this bounce's L shadow-ray groups, immediate NEE
-        pend, sh_o, sh_d = [], [], []
-        for l in range(L):
-            wo, contrib, distl, okl = _nee_geometry(
-                scene, config, l, point, pn, wi, kd_val, ks, ns,
-                draws[4 * l + 0], draws[4 * l + 1],
-                draws[4 * l + 2], draws[4 * l + 3],
-                shade_mask,
-            )
-            pend.append((okl, contrib, distl))
-            sh_o.append(vec.where(okl, point, far3))
-            sh_d.append(vec.where(okl, wo, up))
-        cat = torch.cat
-        shadow = (
-            cat([s[0] for s in sh_o]), cat([s[1] for s in sh_o]),
-            cat([s[2] for s in sh_o]),
-            cat([s[0] for s in sh_d]), cat([s[1] for s in sh_d]),
-            cat([s[2] for s in sh_d]),
-        )
-        # shadow t-bound = the light distance; bound 0 parks the lane
-        s_tb = cat([torch.where(okl, distl, zero) for (okl, _, distl) in pend])
-        s_tg = cat([torch.where(okl, light_mtl_f[l], c(-2.0))
-                    for l, (okl, _, _) in enumerate(pend)])
-        occl_q = config.shadow_test == "mtl"
-        if occl_q:
-            svis = occlusion_trace_segmented(scene, *shadow, s_tb, s_tg,
-                                             config, L)
-        else:
-            st, _, _, _, _, _, smtl, _ = fused_trace_planes(
-                scene, *shadow, config, t_bound=s_tb, target_mtl=s_tg,
-                attrs=False,
-            )
-        for l, (okl, contrib, distl) in enumerate(pend):
-            sl = slice(l * R, (l + 1) * R)
-            if occl_q:
-                vis = svis[sl] > 0.5
-            else:
-                occ = (smtl[sl] == -3.0) | (
-                    (smtl[sl] >= 0.0) & (st[sl] < distl - c(1e-3))
+                # --- dispatch 1: bounce rays (dead lanes bound at 0: instant prune)
+                t, pnx, pny, pnz, tcu, tcv, mtl, em = fused_trace_planes(
+                    scene, o[0], o[1], o[2], d[0], d[1], d[2], config,
+                    t_bound=torch.where(active, c(_INF), c(0.0)),
                 )
-                vis = ~occ
-            add = okl & vis
-            rad = tuple(rad[k] + torch.where(add, thr[k] * contrib[k], zero)
-                        for k in range(3))
-            ray_count = ray_count + okl.to(f32)
+                hit = mtl >= 0.0
+                ray_count = ray_count + active.to(f32)
 
-        # --- Russian roulette + BSDF continuation
-        u = [draws[4 * L + i] for i in range(5)]
-        survive = (shade_mask & (u[0] < c(config.p_rr))
-                   & (bounce + 1 < config.max_depth))
-        new_dir, new_type = sample_bsdf_planar(
-            d, pn, mat["kd"], ks, ns, mat["ni"], u[1], u[2], u[3], u[4],
-        )
-        alive_next = survive & (new_type != INVALID)
+                point = vec.add(o, vec.scale(d, t))
+                pn = vec.normalize((pnx, pny, pnz))
 
-        if config.specular_weight == "ref":
-            ds_weight = kd_val
-        else:
-            ds_weight = vec.where(new_type == SPECULAR, ks, kd_val)
-        weight = vec.where(new_type == TRANSMISSION, mat["tr"], ds_weight)
-        inv_prr = c(1.0 / config.p_rr)
-        thr = vec.where(
-            alive_next,
-            tuple(thr[k] * weight[k] * inv_prr for k in range(3)),
-            thr,
-        )
-        o = vec.where(alive_next, point, o)
-        d = vec.where(alive_next, new_dir, up)
-        ray_type = torch.where(alive_next, new_type, ray_type)
-        bounce = bounce + 1
+                hit_emissive = hit & (em > 0.5)
+                include = (ray_type == CAMERA) | (ray_type == TRANSMISSION)
+                emit = active & hit_emissive & include
+                mat = _material_planes(scene, mtl)
+                mrad = mat["rad"]
+                rad = tuple(rad[k] + torch.where(emit, thr[k] * mrad[k], zero)
+                            for k in range(3))
+                shade_mask = active & hit & ~hit_emissive
 
-        # --- finished paths scatter into the image by pixel id
-        finished = active & ~alive_next
-        spix = torch.where(finished, pix, n_pix)     # n_pix = dropped
-        scatter_add_rows(img, 1, spix, torch.stack(
-            [torch.where(finished, rad[k] * inv_spp, zero) for k in range(3)]),
-            keep=n_pix)
-        active = alive_next
-        return dict(it=it + 1, counter=counter, active=active,
-                    path_id=path_id, pix=pix, bounce=bounce, o=o, d=d,
-                    ray_type=ray_type, thr=thr, rad=rad, pkd=pkd, img=img,
-                    ray_count=ray_count)
+                kd_val = _tex_kd(scene, mat, tcu, tcv, mat["kd"])
+                ks = mat["ks"]
+                ns = mat["ns"]
+                wi = vec.neg(d)
+
+            with span("queue.rng"):
+                # --- per-(path, bounce) uniforms (path-indexed counter RNG)
+                draws = bounce_uniforms(pkd[0], pkd[1], bounce, 4 * L + 5)
+
+            with span("queue.shadow"):
+                # --- dispatch 2: this bounce's L shadow-ray groups, immediate NEE
+                pend, sh_o, sh_d = [], [], []
+                for l in range(L):
+                    wo, contrib, distl, okl = _nee_geometry(
+                        scene, config, l, point, pn, wi, kd_val, ks, ns,
+                        draws[4 * l + 0], draws[4 * l + 1],
+                        draws[4 * l + 2], draws[4 * l + 3],
+                        shade_mask,
+                    )
+                    pend.append((okl, contrib, distl))
+                    sh_o.append(vec.where(okl, point, far3))
+                    sh_d.append(vec.where(okl, wo, up))
+                cat = torch.cat
+                shadow = (
+                    cat([s[0] for s in sh_o]), cat([s[1] for s in sh_o]),
+                    cat([s[2] for s in sh_o]),
+                    cat([s[0] for s in sh_d]), cat([s[1] for s in sh_d]),
+                    cat([s[2] for s in sh_d]),
+                )
+                # shadow t-bound = the light distance; bound 0 parks the lane
+                s_tb = cat([torch.where(okl, distl, zero) for (okl, _, distl) in pend])
+                s_tg = cat([torch.where(okl, light_mtl_f[l], c(-2.0))
+                            for l, (okl, _, _) in enumerate(pend)])
+                occl_q = config.shadow_test == "mtl"
+                if occl_q:
+                    svis = occlusion_trace_segmented(scene, *shadow, s_tb, s_tg,
+                                                     config, L)
+                else:
+                    st, _, _, _, _, _, smtl, _ = fused_trace_planes(
+                        scene, *shadow, config, t_bound=s_tb, target_mtl=s_tg,
+                        attrs=False,
+                    )
+                for l, (okl, contrib, distl) in enumerate(pend):
+                    sl = slice(l * R, (l + 1) * R)
+                    if occl_q:
+                        vis = svis[sl] > 0.5
+                    else:
+                        occ = (smtl[sl] == -3.0) | (
+                            (smtl[sl] >= 0.0) & (st[sl] < distl - c(1e-3))
+                        )
+                        vis = ~occ
+                    add = okl & vis
+                    rad = tuple(rad[k] + torch.where(add, thr[k] * contrib[k], zero)
+                                for k in range(3))
+                    ray_count = ray_count + okl.to(f32)
+
+            with span("queue.scatter"):
+                # --- Russian roulette + BSDF continuation
+                u = [draws[4 * L + i] for i in range(5)]
+                survive = (shade_mask & (u[0] < c(config.p_rr))
+                           & (bounce + 1 < config.max_depth))
+                new_dir, new_type = sample_bsdf_planar(
+                    d, pn, mat["kd"], ks, ns, mat["ni"], u[1], u[2], u[3], u[4],
+                )
+                alive_next = survive & (new_type != INVALID)
+
+                if config.specular_weight == "ref":
+                    ds_weight = kd_val
+                else:
+                    ds_weight = vec.where(new_type == SPECULAR, ks, kd_val)
+                weight = vec.where(new_type == TRANSMISSION, mat["tr"], ds_weight)
+                inv_prr = c(1.0 / config.p_rr)
+                thr = vec.where(
+                    alive_next,
+                    tuple(thr[k] * weight[k] * inv_prr for k in range(3)),
+                    thr,
+                )
+                o = vec.where(alive_next, point, o)
+                d = vec.where(alive_next, new_dir, up)
+                ray_type = torch.where(alive_next, new_type, ray_type)
+                bounce = bounce + 1
+
+                # --- finished paths scatter into the image by pixel id
+                finished = active & ~alive_next
+                spix = torch.where(finished, pix, n_pix)     # n_pix = dropped
+                scatter_add_rows(img, 1, spix, torch.stack(
+                    [torch.where(finished, rad[k] * inv_spp, zero) for k in range(3)]),
+                    keep=n_pix)
+                active = alive_next
+            return dict(it=it + 1, counter=counter, active=active,
+                        path_id=path_id, pix=pix, bounce=bounce, o=o, d=d,
+                        ray_type=ray_type, thr=thr, rad=rad, pkd=pkd, img=img,
+                        ray_count=ray_count)
 
     return max_iters, init_state, more, body
 

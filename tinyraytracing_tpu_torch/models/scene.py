@@ -22,6 +22,7 @@ from tinyraytracing_tpu_torch.io.objmesh import MeshArrays, parse_obj, triangle_
 from tinyraytracing_tpu_torch.io.textures import load_texture_atlas
 from tinyraytracing_tpu_torch.io.xmlscene import SceneConfig, parse_scene_xml
 from tinyraytracing_tpu_torch.models.camera import Camera
+from tinyraytracing_tpu_torch.utils.spans import spanned
 
 
 def _to(obj, device):
@@ -197,6 +198,7 @@ class Scene:
         return bvh_records(self.bvh.packed)
 
     @functools.cached_property
+    @spanned("scene.records")
     def trace_records(self):
         """The trace kernels' layout of the scene's BVH
         (``ops.trace.trace_records``: child records of the wide nodes, the
@@ -308,6 +310,7 @@ def woop_transform(tri_v: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     return rows, b
 
 
+@spanned("scene.assemble")
 def assemble_scene(
     config: SceneConfig,
     mesh: MeshArrays,

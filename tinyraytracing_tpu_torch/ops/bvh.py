@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from tinyraytracing_tpu_torch.config import RenderConfig
+from tinyraytracing_tpu_torch.utils.spans import span, spanned
 
 
 def build_bvh(
@@ -137,6 +138,7 @@ def build_bvh(
     return nodes, perm.astype(np.int64)
 
 
+@spanned("scene.sah")
 def build_bvh_host(
     tri_v: np.ndarray, leaf_size: int = 8, aabb_pad: float = 1e-3
 ) -> tuple[dict, np.ndarray]:
@@ -196,30 +198,32 @@ def attach_bvh(scene, config: RenderConfig):
     def p(t):
         return host(t)[perm]
 
-    packed = pack_bvh_leaves(
-        nodes, p(scene.woop_a), p(scene.woop_b), p(scene.gn),
-        p(scene.tri_emissive), config.leaf_size,
-        n0=p(scene.n0), n1=p(scene.n1), n2=p(scene.n2),
-        t0=p(scene.t0), t1=p(scene.t1), t2=p(scene.t2),
-        mtl=p(scene.tri_mtl),
-    )
-    bvh = BVHArrays.from_nodes(nodes, packed, config.leaf_size,
-                               config.aabb_pad)
-    meta = refit_metadata(nodes, len(perm))
-    bvh = dataclasses.replace(
-        bvh, n_levels=meta.pop("n_levels"),
-        **{k: torch.from_numpy(a) for k, a in meta.items()})
-    inv_perm = np.empty(len(perm), np.int64)
-    inv_perm[np.asarray(perm)] = np.arange(len(perm))
+    with span("scene.pack"):
+        packed = pack_bvh_leaves(
+            nodes, p(scene.woop_a), p(scene.woop_b), p(scene.gn),
+            p(scene.tri_emissive), config.leaf_size,
+            n0=p(scene.n0), n1=p(scene.n1), n2=p(scene.n2),
+            t0=p(scene.t0), t1=p(scene.t1), t2=p(scene.t2),
+            mtl=p(scene.tri_mtl),
+        )
+        bvh = BVHArrays.from_nodes(nodes, packed, config.leaf_size,
+                                   config.aabb_pad)
+        meta = refit_metadata(nodes, len(perm))
+        bvh = dataclasses.replace(
+            bvh, n_levels=meta.pop("n_levels"),
+            **{k: torch.from_numpy(a) for k, a in meta.items()})
+        inv_perm = np.empty(len(perm), np.int64)
+        inv_perm[np.asarray(perm)] = np.arange(len(perm))
     dev = scene.v0.device
     fields = ("v0", "v1", "v2", "n0", "n1", "n2", "t0", "t1", "t2", "gn",
               "woop_a", "woop_b", "tri_mtl", "tri_emissive")
-    moved = {f: torch.from_numpy(p(getattr(scene, f))).to(dev) for f in fields}
-    lt_tri = inv_perm[host(scene.lt_tri)].astype(np.int32)
-    return dataclasses.replace(
-        scene, **moved, lt_tri=torch.from_numpy(lt_tri).to(dev),
-        bvh=bvh.to(dev),
-    )
+    with span("scene.upload"):
+        moved = {f: torch.from_numpy(p(getattr(scene, f))).to(dev) for f in fields}
+        lt_tri = inv_perm[host(scene.lt_tri)].astype(np.int32)
+        return dataclasses.replace(
+            scene, **moved, lt_tri=torch.from_numpy(lt_tri).to(dev),
+            bvh=bvh.to(dev),
+        )
 
 
 def widen_bvh(nodes, arity: int = 8):

@@ -36,18 +36,12 @@ from tinyraytracing_tpu_torch.config import RenderConfig
 from tinyraytracing_tpu_torch.ops.slot_test import (
     SLOT, init_best, merge_slots, tie_band, woop_slot_test,
 )
+from tinyraytracing_tpu_torch.utils import spans
 
 _INF = 3.0e38
 # float operations of one node's slab test: 6 sub, 6 mul, 10 min/max,
 # the entry/exit select, 3 compares, the clamp at 0 and bt * (1 + tie_eps)
 SLAB_FLOPS = 28
-
-LAUNCHES = {"bvh_intersect": 0}
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 def bvh_intersect_plain(pk, rays: torch.Tensor, config: RenderConfig,
@@ -241,7 +235,7 @@ def bvh_intersect_kernel(rec: BvhRecords, rays: torch.Tensor,
             torch.cuda.current_stream(rays.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"bvh_intersect kernel launch failed: cudaError {err}")
-    LAUNCHES["bvh_intersect"] += 1
+    spans.count("launches.bvh_intersect")
     return t, tri, u, v
 
 

@@ -49,16 +49,9 @@ import math
 
 import torch
 
+from tinyraytracing_tpu_torch.utils import spans
+
 FIXED_CHUNK = 32          # K: values a chunk sums left to right, per level
-
-# kernel launches per wrapper; each wrapper adds one where it launches
-# (one per call, which runs its sort's and its adds' launches)
-LAUNCHES = {"scatter_rows": 0, "scatter_fixed": 0}
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 def _sorted_rows(rows: torch.Tensor):
@@ -245,7 +238,7 @@ def scatter_add_rows_kernel(dst: torch.Tensor, dim: int, rows: torch.Tensor,
             s_row, s_col, torch.cuda.current_stream(dst.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"scatter_rows kernel launch failed: cudaError {err}")
-    LAUNCHES["scatter_rows"] += 1
+    spans.count("launches.scatter_rows")
     return dst
 
 
@@ -281,7 +274,7 @@ def scatter_add_rows_fixed_kernel(n_rows: int, rows: torch.Tensor,
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"scatter_fixed kernel launch failed: cudaError {err}")
-    LAUNCHES["scatter_fixed"] += 1
+    spans.count("launches.scatter_fixed")    # one a call: both its launches
     return out.reshape(n_rows, *src.shape[1:])
 
 

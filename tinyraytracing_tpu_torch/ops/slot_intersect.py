@@ -25,14 +25,7 @@ from tinyraytracing_tpu_torch.config import RenderConfig
 from tinyraytracing_tpu_torch.ops.slot_test import (
     SLOT, init_best, merge_slots, tie_band, woop_slot_test,
 )
-
-# kernel launches per wrapper; the wrapper adds one where it launches
-LAUNCHES = {"slot_intersect": 0}
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+from tinyraytracing_tpu_torch.utils import spans
 
 
 def pack_triangle_slots(woop_a, woop_b, gn, emissive):
@@ -140,7 +133,7 @@ def slot_intersect_kernel(P, n_tri: int, rays: torch.Tensor,
             torch.cuda.current_stream(rays.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"slot_intersect kernel launch failed: cudaError {err}")
-    LAUNCHES["slot_intersect"] += 1
+    spans.count("launches.slot_intersect")
     return t, idx, u, v
 
 

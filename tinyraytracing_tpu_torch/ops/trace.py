@@ -55,6 +55,7 @@ import torch
 
 from tinyraytracing_tpu_torch.config import RenderConfig
 from tinyraytracing_tpu_torch.ops.slot_test import SLOT, slot_replaces, woop_slot_test
+from tinyraytracing_tpu_torch.utils import spans
 
 _INF = 3.0e38
 N_OUT = 9          # t, pn xyz, tc uv, mtl, em, slot
@@ -72,17 +73,6 @@ SORT8 = ((0, 1), (2, 3), (4, 5), (6, 7), (0, 2), (1, 3), (4, 6), (5, 7),
 # float operations of one near-first key (3 adds of box bounds, 3 products,
 # 2 adds), computed for each child a ray keeps
 KEY_FLOPS = 8
-
-# kernel launches per wrapper; each wrapper adds one where it launches
-# ("trace_near": the near-first walk, either query; "packet_dirs": its
-# packets' direction sums)
-LAUNCHES = {"trace_closest": 0, "trace_occlusion": 0, "trace_near": 0,
-            "packet_dirs": 0}
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 def stack_size(pk) -> int:
@@ -171,7 +161,7 @@ def packet_dirs_kernel(rays: torch.Tensor, tile: int) -> torch.Tensor:
             torch.cuda.current_stream(rays.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"packet_dirs kernel launch failed: cudaError {err}")
-    LAUNCHES["packet_dirs"] += 1
+    spans.count("launches.packet_dirs")
     return md
 
 
@@ -565,9 +555,10 @@ def trace_kernel(rec: TraceRecords, rays: torch.Tensor, config: RenderConfig,
     if err != 0:
         raise RuntimeError(f"trace kernel launch failed: cudaError {err}")
     if md is not None:
-        LAUNCHES["trace_near"] += 1
+        spans.count("launches.trace_near")
     else:
-        LAUNCHES["trace_occlusion" if occl else "trace_closest"] += 1
+        spans.count("launches.trace_occlusion" if occl
+                    else "launches.trace_closest")
     return out
 
 

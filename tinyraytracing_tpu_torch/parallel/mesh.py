@@ -43,6 +43,7 @@ from tinyraytracing_tpu_torch.models.camera import (
 )
 from tinyraytracing_tpu_torch.models.scene import Scene
 from tinyraytracing_tpu_torch.ops.rng import fold_in, split
+from tinyraytracing_tpu_torch.utils.spans import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -270,10 +271,12 @@ def render_queue_sharded(scene: Scene, cam: Camera, key, config: RenderConfig,
     radiance does not depend on the rank that traces it; the pixel sums
     add in another order than ``render_fused_queue``'s."""
     mesh = mesh if mesh is not None else make_mesh()
-    img, rays = _queue_share(scene, cam, key, config, spp, lanes, mesh.size,
-                             mesh.rank)
-    return (mesh.all_reduce(img).reshape(cam.height, cam.width, 3),
-            mesh.all_reduce(rays))
+    with span("mesh.share"):
+        img, rays = _queue_share(scene, cam, key, config, spp, lanes,
+                                 mesh.size, mesh.rank)
+    with span("mesh.allreduce"):
+        return (mesh.all_reduce(img).reshape(cam.height, cam.width, 3),
+                mesh.all_reduce(rays))
 
 
 # ---------------------------------------------------------------------------
