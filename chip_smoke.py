@@ -38,7 +38,12 @@ fixed-order scatter kernels (``csrc/scatter_add.cu``, no TPU counterpart:
 they replace ``index_add_``'s atomics) bitwise to their plain versions on
 calls copied from phases 3, 6 and 8 and on the edge cases of the CPU
 tests, timed against ``index_add_`` and ``index_put_``, with each call's
-device ops and a run under the sync debug mode; phase 10 runs the two inverse-rendering examples
+device ops and a run under the sync debug mode; phase 2c holds the two
+threefry kernels (``csrc/rng.cu``, no TPU counterpart: XLA fuses the
+chain they replace) bitwise to the int64 chain at the main paths' shapes,
+timed beside it and their bound, and counts one launch of each a loop
+iteration in one unit of each one-card render cell of the benchmark's
+registry (a grid100k bucket, a cornell pass4 pass); phase 10 runs the two inverse-rendering examples
 (``tinyraytracing_tpu_torch/examples/``) at 32x32. The CLI's tree must come
 from the native builder (``native/``, built with g++ in phase 1). The
 slot kernel is also checked on grid6000 and on the tie scene of the CPU
@@ -74,7 +79,14 @@ kernel and the slot kernel, and the two scatter kernels on phase 6b's
 shapes (the queue's and ``render_regen``'s image calls, the longest
 cotangent call, every cotangent call of a cornell forward + backward);
 and times phase 6's scan ``render_loss`` forward + backward (its
-gradients are not compared bitwise). ``--sass TREE`` counts the SASS instructions
+gradients are not compared bitwise).
+
+    python3 chip_smoke.py --compare-rng tmp_out/parent --out tmp_out/rng.json
+
+does the same for the threefry calls of phase 2c (through
+``ops.rng.bounce_uniforms`` and ``path_keys``, whatever the tree runs
+behind them) and for one unit of each of its render cells, whose images
+must be bitwise the parent's. ``--sass TREE`` counts the SASS instructions
 per slot test of the slot kernel of TREE's package.
 """
 
@@ -103,7 +115,9 @@ SOURCES = {"trace_closest": CSRC + "trace.cu",
            "bvh_intersect": CSRC + "bvh_intersect.cu",
            "slot_intersect": CSRC + "slot_intersect.cu",
            "scatter_rows": CSRC + "scatter_add.cu",
-           "scatter_fixed": CSRC + "scatter_add.cu"}
+           "scatter_fixed": CSRC + "scatter_add.cu",
+           "threefry_draws": CSRC + "rng.cu",
+           "threefry_path_keys": CSRC + "rng.cu"}
 REPLACES = {
     "trace_closest": "tinyraytracing_tpu/ops/pallas_trace.py:962",
     "trace_occlusion": "tinyraytracing_tpu/ops/pallas_trace.py:206",
@@ -119,6 +133,11 @@ REPLACES = {
     "scatter_fixed": "none (no TPU counterpart: replaces index_add_ in the "
                      "backward of tinyraytracing_tpu_torch/ops/lookup.py "
                      "gather_rows)",
+    # no TPU counterpart: XLA fuses the JAX package's threefry chain
+    "threefry_draws": "none (no TPU counterpart: replaces the int64 chain of "
+                      "tinyraytracing_tpu_torch/ops/rng.py bounce_uniforms)",
+    "threefry_path_keys": "none (no TPU counterpart: replaces the int64 chain "
+                          "of tinyraytracing_tpu_torch/ops/rng.py path_keys)",
 }
 # H100 SXM datasheet peaks: float32 outside the tensor
 # cores, and HBM bandwidth
@@ -1846,6 +1865,209 @@ def phase_scatter(dev, refs, reports, counts):
 
 
 # ---------------------------------------------------------------------------
+# phase 2c: the threefry kernels (csrc/rng.cu) at the main paths' shapes
+# ---------------------------------------------------------------------------
+
+RNG_KERNELS = ("threefry_draws", "threefry_path_keys")
+# (lanes, draws, bounce a plane?) of the main paths' calls: the queue and
+# persistent loops' 4,194,304 lanes, and render_loss_fast's 1024x1024 at
+# 2 spp with one bounce for every lane (a 0-d tensor)
+RNG_CALLS = ((4_194_304, 9, True), (2_097_152, 9, False))
+RNG_KEY = (2**31 + 7, 2**32 - 1)  # master key words of the path-key calls
+RNG_SEED = 3_000_000_017          # the renders' master key seed
+
+
+def _rng_bound(R, n, bounce_plane=True):
+    """(ms, "operations" | "bytes"): the least time of a threefry call of
+    ``R`` lanes, ``n`` draws (0: the path keys): its 32-bit integer
+    operations, one instruction each at the card's issue rate (INSTR_RATE,
+    whichever pipe takes them), against each plane's bytes moved once at
+    PEAK_BYTES. A threefry2x32 block is 77 operations (20 rounds of an
+    add, a rotate and an xor; the counter plus the key; five injections of
+    3), the key's parity word 2, a draw 3 (a shift, a conversion, a
+    product)."""
+    if n:
+        ops, nbytes = 2 + 77 * ((n + 1) // 2) + 3 * n, 16 + 8 * bounce_plane + 4 * n
+    else:
+        ops, nbytes = 2 + 77, 8 + 16
+    t_ops, t_bytes = R * ops / INSTR_RATE, R * nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _rng_inputs(R, plane, dev):
+    """(k0, k1, bounce) on ``dev`` from a seed: random 32-bit key words,
+    the first lanes at and above 2^31 and at 2^32 - 1; bounces 0 to 16 as
+    a plane, or one word (0-d) for every lane."""
+    gen = torch.Generator().manual_seed(R + plane)
+    k0, k1 = (torch.randint(0, 2**32, (R,), dtype=torch.int64, generator=gen)
+              for _ in range(2))
+    edge = torch.tensor([2**31, 2**32 - 1, 0, 2**31 - 1, 2**31 + 1], dtype=torch.int64)
+    k0[:5], k1[:5] = edge, edge.flip(0)
+    bounce = (torch.randint(0, 17, (R,), dtype=torch.int64, generator=gen) if plane
+              else torch.tensor(3, dtype=torch.int64))
+    return k0.to(dev), k1.to(dev), bounce.to(dev)
+
+
+def _rng_calls(R, n, plane, dev):
+    """{kernel: (label, the wrapper's call, the plain version's, bound)} of
+    one main-path shape: the draws, and the path keys of the same lanes
+    (``k1`` as the path ids)."""
+    from tinyraytracing_tpu_torch.ops import rng
+
+    k0, k1, b = _rng_inputs(R, plane, dev)
+    return {
+        "threefry_draws": (
+            f"{R:,} lanes, n = {n}, bounce {'a plane' if plane else '0-d'}",
+            lambda: rng.bounce_uniforms(k0, k1, b, n),
+            lambda: rng.bounce_uniforms_plain(k0, k1, b, n), _rng_bound(R, n, plane)),
+        "threefry_path_keys": (
+            f"{R:,} lanes", lambda: rng.path_keys(RNG_KEY, k1),
+            lambda: rng.path_keys_plain(RNG_KEY, k1), _rng_bound(R, 0))}
+
+
+def _cell(name):
+    """(configuration, traffic) of the benchmark's cell ``name``, as its
+    registry of cells holds them (BENCHMARK.json, portbench/configs/ and
+    portbench/traffic/)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+
+    def read(*path):
+        with open(os.path.join(root, *path)) as f:
+            return json.load(f)
+
+    (cell,) = [w for w in read("BENCHMARK.json")["workloads"] if w["name"] == name]
+    return (read("portbench", "configs", f"{cell['config']}.json"),
+            read("portbench", "traffic", f"{cell['traffic']}.json"))
+
+
+def _cell_renders(dev):
+    """(label, render) of one unit of each one-card render cell, at its
+    shapes (``_cell``) on the port's procedural scenes, from the key
+    fold_in(master_key_data(RNG_SEED), 0): a grid100k bucket of the queue
+    loop (the chunked driver, the first path slice) and a cornell pass4
+    pass of the persistent loop; ``render()`` -> (image, rays)."""
+    from tinyraytracing_tpu_torch.config import RenderConfig
+    from tinyraytracing_tpu_torch.integrator.fused import render_fused
+    from tinyraytracing_tpu_torch.integrator.fused_queue import render_fused_queue_chunked
+    from tinyraytracing_tpu_torch.models.procedural import cornell_box, quad_grid
+    from tinyraytracing_tpu_torch.ops import rng
+    from tinyraytracing_tpu_torch.ops.bvh import attach_bvh
+
+    key = rng.fold_in(rng.master_key_data(RNG_SEED), 0)
+    rc = lambda cfg: RenderConfig(max_depth=cfg["max_depth"], p_rr=cfg["p_rr"],
+                                  leaf_size=cfg["leaf_size"])
+    cfg, tr = _cell("grid100k.bucket512")
+    grid, cam = quad_grid(cfg["scene"]["triangles"], cfg["width"], cfg["height"],
+                          device=dev)
+    yield "grid100k.bucket512, bucket 0", lambda: render_fused_queue_chunked(
+        grid, cam, key, rc(cfg), tr["spp"], lanes=tr["lanes"], path_lo=0,
+        n_paths=tr["bucket_pixels"] * tr["spp"])
+    cfg, tr = _cell("cornell.pass4")
+    box, cam = cornell_box(tr["width"], tr["height"], device=dev)
+    box = attach_bvh(box, rc(cfg))
+    yield "cornell.pass4, pass 0", lambda: render_fused(
+        box, cam, key, rc(cfg), tr["spp"], lanes=tr["lanes"])
+
+
+def phase_rng(dev, reports):
+    """Phase 2c: both threefry kernels bitwise their plain versions (the
+    int64 chain, on the card) at the main paths' shapes (``RNG_CALLS``),
+    each with a storage a plane and a run under the sync debug mode, timed
+    beside their bound and the plain chain's device time; then one unit
+    of each one-card render cell (``_cell_renders``), whose loops launch
+    each kernel once an iteration (the wrappers' ``launches.*`` counters
+    against ``queue.iterations`` / ``fused.iterations``). Returns (ok,
+    launches)."""
+    from tinyraytracing_tpu_torch.utils import spans
+
+    log("phase 2c: the threefry kernels (csrc/rng.cu, no TPU counterpart: "
+        "XLA fuses the same chain) against the int64 chain on the card; "
+        "the plain chain's device time from CUDA events around a call "
+        "queued behind a spin kernel")
+    ok = True
+    for i, (R, n, plane) in enumerate(RNG_CALLS):
+        for name, (label, fn, plain, (bound, by)) in _rng_calls(R, n, plane, dev).items():
+            got, want = fn(), plain()
+            same = len(got) == len(want) and all(map(_bits_equal, got, want))
+            own = len({g.untyped_storage().data_ptr() for g in got}) == len(got)
+            quiet = _never_synchronizes(fn)
+            dev_ms, host_ms, mhz = _times(fn, (name,))
+            plain_ms, _ = _device_total_ms(plain, 1)
+            log(f"  {name}, {label}: bitwise the plain chain {same}; a storage "
+                f"a plane {own}; no host synchronization {quiet}; device "
+                f"{dev_ms:.4f} ms a call (host-inclusive {host_ms:.4f}), bound "
+                f"{bound:.4f} ({by}), the plain chain {plain_ms:.3f} ms device; "
+                f"{_mhz(mhz)} after it")
+            ok &= same and own and quiet
+            case = dict(ms=dev_ms, device_ms=dev_ms, host_ms=host_ms, plain_ms=plain_ms,
+                        bound_ms=bound, bound_by=by, max_abs_err=0.0 if same else None,
+                        sm_mhz=mhz)
+            rep = reports.setdefault(name, {})
+            rep.setdefault("cases", {})[label] = case
+            if i == 0:                         # the render loops' call
+                rep.update(case)
+    launches = dict.fromkeys(RNG_KERNELS, 0)
+    for label, render in _cell_renders(dev):
+        render()                                 # the allocator's blocks
+        with spans.recording() as rec:
+            t0 = time.perf_counter()
+            img, rays = render()
+            rays = float(rays)
+            wall = time.perf_counter() - t0
+        its = rec.counts.get("queue.iterations", 0) + rec.counts.get("fused.iterations", 0)
+        got = {k: rec.counts.get("launches." + k, 0) for k in RNG_KERNELS}
+        each = its > 0 and all(c == its for c in got.values())
+        log(f"  {label}: {its} iterations, launches {got}: one of each an "
+            f"iteration {each}; {wall:.3f} s, {rays / wall:.4g} rays/s, image "
+            f"mean {float(img.mean()):.6g}")
+        ok &= each and bool(torch.isfinite(img).all())
+        for k in RNG_KERNELS:
+            launches[k] += got[k]
+    log(f"phase 2c: {'ok' if ok else 'FAILED'}")
+    return ok, launches
+
+
+def rng_times(tree):
+    """``--rng-times TREE``: the main paths' threefry calls (``RNG_CALLS``,
+    through ``ops.rng.bounce_uniforms`` and ``path_keys``: the kernels
+    here, the int64 chain in a tree without them) and one unit of each
+    one-card render cell (``_cell_renders``), as the package in ``TREE``
+    runs them. Prints one JSON object: per case [device ms of a call (CUDA
+    events behind a spin; a render's wall, synchronized), host-inclusive
+    ms (CUDA events around back-to-back calls; a render's again), digest
+    of the outputs, SM clock MHz after the set]."""
+    import hashlib
+
+    sys.path.insert(0, os.path.abspath(tree))
+    import tinyraytracing_tpu_torch
+
+    def digest(out):
+        h = hashlib.sha256()
+        for x in out:
+            h.update(x.contiguous().cpu().numpy().tobytes())
+        return h.hexdigest()[:16]
+
+    dev = torch.device("cuda")
+    res = {"package": os.path.dirname(tinyraytracing_tpu_torch.__file__)}
+    for R, n, plane in RNG_CALLS:
+        for name, (label, fn, _, _) in _rng_calls(R, n, plane, dev).items():
+            ms, mhz = _device_total_ms(fn, 1)
+            res[f"{name} {label}"] = [ms, _host_ms(fn, 5), digest(fn()), mhz]
+    for label, render in _cell_renders(dev):
+        render()
+        walls = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = render()
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.perf_counter() - t0))
+        res[f"render {label}"] = [walls[0], walls[1], digest(out), _sm_clock()]
+    print(json.dumps(res), flush=True)
+    return 0
+
+
+# ---------------------------------------------------------------------------
 # phase 10: the inverse-rendering examples
 # ---------------------------------------------------------------------------
 
@@ -3143,8 +3365,9 @@ def sass_counts(tree, out_path):
     return 0
 
 
-def compare(parent, out_path):
-    """``--compare PARENT``: ``--kernel-times`` of the package in PARENT (a
+def compare(parent, out_path, mode="--kernel-times"):
+    """``--compare PARENT``: ``--kernel-times`` (or ``mode``: ``--compare-rng
+    PARENT`` runs ``--rng-times``) of the package in PARENT (a
     ``git archive`` of the parent commit, unpacked) and of this tree, in
     turns (parent, this, this, parent), each in its own process, so both
     are timed on the same card; prints the device times side by side, each
@@ -3155,10 +3378,10 @@ def compare(parent, out_path):
     runs = []
     for tree in (parent, here, here, parent):
         res = subprocess.run([sys.executable, os.path.abspath(__file__),
-                              "--kernel-times", tree], cwd=tree,
+                              mode, tree], cwd=tree,
                              capture_output=True, text=True)
         if res.returncode != 0:
-            log(f"--kernel-times {tree} failed:\n{res.stdout[-3000:]}"
+            log(f"{mode} {tree} failed:\n{res.stdout[-3000:]}"
                 f"{res.stderr[-3000:]}")
             return 1
         runs.append(json.loads(res.stdout.strip().splitlines()[-1]))
@@ -3236,6 +3459,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--compare", metavar="PARENT",
                     help="time the redesigned kernels against the tree PARENT")
+    ap.add_argument("--compare-rng", metavar="PARENT",
+                    help="the threefry calls and one unit of each one-card "
+                         "render cell, timed and checked bitwise against the "
+                         "tree PARENT")
     ap.add_argument("--four-cards", action="store_true",
                     help="phase 9 with one NCCL rank on each of four cards "
                          "(after phases 1, 3, 3b and 3c on card 0)")
@@ -3244,20 +3471,25 @@ def main(argv=None) -> int:
     ap.add_argument("--sass", metavar="TREE",
                     help="instructions per slot test in the slot kernel of "
                          "the package in TREE (cuobjdump)")
-    ap.add_argument("--out", help="with --compare or --profile-walk: write "
+    ap.add_argument("--out", help="with --compare(-rng) or --profile-walk: write "
                                   "the table here (JSON); with --sass, the "
                                   "listing")
     ap.add_argument("--kernel-times", metavar="TREE", help=argparse.SUPPRESS)
+    ap.add_argument("--rng-times", metavar="TREE", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     if args.kernel_times:
         return kernel_times(args.kernel_times)
+    if args.rng_times:
+        return rng_times(args.rng_times)
     if args.sass:
         return sass_counts(args.sass, args.out)
     if args.compare:
         return compare(os.path.abspath(args.compare), args.out)
+    if args.compare_rng:
+        return compare(os.path.abspath(args.compare_rng), args.out, "--rng-times")
     if args.four_cards:
         return four_cards()
     if args.profile_walk:
@@ -3290,6 +3522,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     ok2, ok2b, reports = phase_kernels(dev)
+    ok2c, rng_launches = phase_rng(dev, reports)
     _second_readings_summary()
     refs = {}                   # phases 3, 3b and 3c's renders, for phase 9
     with tempfile.TemporaryDirectory() as tmp:
@@ -3324,6 +3557,7 @@ def main(argv=None) -> int:
     ok9, sharded_launches = phase_sharded(dev, refs)
     for k, n in sharded_launches.items():
         launches[k] = launches.get(k, 0) + n
+    launches.update(rng_launches)          # phase 2c's renders of the cells
 
     # no single PyTorch call computes a BVH walk or brute-force closest
     # hit; the packet sums have one (a sum over each packet)
@@ -3338,7 +3572,8 @@ def main(argv=None) -> int:
                  **({"cases": r["cases"]} if "cases" in r else {}))
             for k, r in reports.items()]
     log(json.dumps({"kernels": kern}))
-    phases = {"kernels": ok2, "scan kernels": ok2b, "cli render": ok3,
+    phases = {"kernels": ok2, "scan kernels": ok2b, "threefry kernels": ok2c,
+              "cli render": ok3,
               "cli scan render": ok3b, "cli persistent render": ok3c,
               "near queue render": ok3d, "render vs render": ok4,
               "scan vs scan": ok4b, "persistent vs persistent": ok4c,
