@@ -127,7 +127,7 @@ def test_parse_obj_native_equals_parse_obj(tmp_path, text):
     path.write_text(text)
     a, b = native.parse_obj_native(str(path)), parse_obj(str(path))
     assert a.mtl_names == b.mtl_names
-    for k in ("v", "vn", "vt", "normal", "center", "mtl"):
+    for k in ("v", "vn", "vt", "normal", "center", "mtl", "vertices", "vertex_index"):
         x, y = getattr(a, k), getattr(b, k)
         assert x.dtype == y.dtype and x.shape == y.shape, k
         np.testing.assert_array_equal(x, y, err_msg=k)

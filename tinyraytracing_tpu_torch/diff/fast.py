@@ -56,6 +56,7 @@ from tinyraytracing_tpu_torch.ops.rng import (
 from tinyraytracing_tpu_torch.ops.trace import (
     _INF, fused_trace_planes, occlusion_trace_segmented,
 )
+from tinyraytracing_tpu_torch.utils import spans
 from tinyraytracing_tpu_torch.utils.spans import span
 
 # the scene arrays the replay differentiates, in fused_trace_diff's order
@@ -321,6 +322,8 @@ def render_loss_fast(params, scene, cam, key, target, config: RenderConfig,
     ``shadow_edge_samples`` > 0 the shadow-silhouette term for
     camera-visible shading points under planar light ``shadow_light``.
     Both are added as ``x - x.detach()``, so the loss value is unchanged.
+    The forward's traced rays (closest hit and shadow) go to the device
+    count ``diff.rays`` of an open ``utils.spans`` recording.
     ``edge_aux``: ``diff.edge.build_edge_aux(scene)``, built here when
     None (build it once per scene). The terms' integrands trace through
     ``config.intersector`` (on the card the packet-BVH or slot kernel)."""
@@ -329,7 +332,8 @@ def render_loss_fast(params, scene, cam, key, target, config: RenderConfig,
 
     with span("diff.refit"):
         s2, c2 = apply_params(scene, cam, params)
-    img = render_diff(s2, c2, key, config, spp)
+    img, rays = render_diff(s2, c2, key, config, spp, return_rays=True)
+    spans.add("diff.rays", rays)
     loss = torch.mean((img - target) ** 2)
     if edge_samples or shadow_edge_samples:
         if edge_aux is None:

@@ -15,6 +15,7 @@ trace kernels.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
@@ -23,10 +24,13 @@ from tinyraytracing_tpu_torch.config import RenderConfig
 from tinyraytracing_tpu_torch.models.camera import Camera
 from tinyraytracing_tpu_torch.models.scene import Scene
 from tinyraytracing_tpu_torch.ops.linalg import cross, dot
+from tinyraytracing_tpu_torch.ops.lookup import gather_rows
 from tinyraytracing_tpu_torch.render import render
+from tinyraytracing_tpu_torch.utils import spans
 from tinyraytracing_tpu_torch.utils.spans import span
 
-PARAM_FIELDS = ("kd", "radiance", "vertex_offset", "eye", "lookat")
+PARAM_FIELDS = ("kd", "radiance", "vertex_offset", "eye", "lookat",
+                "shared_vertex_offset")
 
 
 @dataclasses.dataclass
@@ -34,8 +38,12 @@ class SceneParams:
     """Differentiable leaves layered onto a Scene/Camera.
 
     Any field can be None (not optimised). ``vertex_offset`` is a
-    per-triangle rigid offset added to all three vertices; silhouette
-    gradients are interior-term only (the JAX package's diff/__init__).
+    per-triangle rigid offset added to all three vertices;
+    ``shared_vertex_offset`` moves the mesh's shared vertices
+    (``Scene.vertices``): each mesh triangle's corner k takes the offset
+    of its vertex id k, so the surface stays connected, and triangles
+    outside the mesh stay. Silhouette gradients are interior-term only
+    (the JAX package's diff/__init__).
     """
 
     kd: torch.Tensor | None = None             # (M, 3) material albedo
@@ -43,6 +51,7 @@ class SceneParams:
     vertex_offset: torch.Tensor | None = None  # (T, 3)
     eye: torch.Tensor | None = None            # (3,) camera position
     lookat: torch.Tensor | None = None         # (3,)
+    shared_vertex_offset: torch.Tensor | None = None  # (V, 3)
 
     @staticmethod
     def init_from(scene: Scene, cam: Camera, *fields: str) -> "SceneParams":
@@ -54,6 +63,7 @@ class SceneParams:
             vertex_offset=lambda: torch.zeros_like(scene.v0),
             eye=lambda: cam.eye,
             lookat=lambda: cam.lookat,
+            shared_vertex_offset=lambda: torch.zeros_like(scene.vertices),
         )
         return SceneParams(**{f: src[f]().detach().clone() for f in fields})
 
@@ -64,9 +74,9 @@ class SceneParams:
 
 
 def woop_transform(v0, v1, v2):
-    """Differentiable float32 version of ``models.scene.woop_transform``:
-    per-triangle affine map to unit-barycentric space. Returns
-    (A (T, 3, 3), b (T, 3), unit geometric normal (T, 3))."""
+    """Differentiable version of ``models.scene.woop_transform`` in the
+    corners' precision: per-triangle affine map to unit-barycentric space.
+    Returns (A (T, 3, 3), b (T, 3), unit geometric normal (T, 3))."""
     e1 = v1 - v0
     e2 = v2 - v0
     n = cross(e1, e2)
@@ -97,11 +107,19 @@ def apply_params(scene: Scene, cam: Camera, p: SceneParams):
     new (Scene, Camera).
 
     ``vertex_offset`` moves all three vertices of each triangle rigidly
-    and recomputes every derived geometric quantity differentiably (the
-    Woop rows the mxu and slot intersectors read, the geometric normal of
-    the grazing cull, the NEE light tables through ``lt_tri``), so no
-    backend traces the unmoved mesh. A BVH with refit metadata is refit
-    (``diff/refit.py``, detached); one without it is dropped.
+    and ``shared_vertex_offset`` the mesh's shared vertices (the span
+    ``diff.mesh``), and either recomputes every derived geometric quantity
+    differentiably (the Woop rows the mxu and slot intersectors read, the
+    geometric normal of the grazing cull, the NEE light tables through
+    ``lt_tri``), so no backend traces the unmoved mesh. Under
+    ``shared_vertex_offset`` the mesh's faces turn, so a flat-shaded
+    mesh's shading normals become the moved faces' unit normals, with
+    their gradient; a mesh with smooth vertex normals raises. The moved
+    mesh's Woop rows and normals come from its corners in float64 (the
+    loaded table plus the offsets), as the loader computes them;
+    triangles outside the mesh keep theirs bitwise. A BVH with refit
+    metadata is refit (``diff/refit.py``, detached, the packed shading
+    normals with it); one without it is dropped.
     """
     up_s = {}
     if p.kd is not None:
@@ -110,20 +128,15 @@ def apply_params(scene: Scene, cam: Camera, p: SceneParams):
         up_s["radiance"] = p.radiance
         # keep the light table's cached radiance consistent
         up_s["light_radiance"] = p.radiance[scene.light_mtl.long()]
-    if p.vertex_offset is not None:
-        v0 = scene.v0 + p.vertex_offset
-        v1 = scene.v1 + p.vertex_offset
-        v2 = scene.v2 + p.vertex_offset
-        woop_a, woop_b, gn = woop_transform(v0, v1, v2)
-        # rigid per-triangle moves keep the areas (lt_prefix, light_area)
-        lt = scene.lt_tri.long()
-        up_s.update(v0=v0, v1=v1, v2=v2, woop_a=woop_a, woop_b=woop_b, gn=gn,
-                    lt_v0=v0[lt], lt_v1=v1[lt], lt_v2=v2[lt])
+    shared = p.shared_vertex_offset is not None
+    if p.vertex_offset is not None or shared:
+        with span("diff.mesh") if shared else contextlib.nullcontext():
+            up_s.update(_moved_geometry(scene, p))
         if not refittable(scene):
             up_s["bvh"] = None
     if up_s:
         scene = dataclasses.replace(scene, **up_s)
-        if p.vertex_offset is not None and scene.bvh is not None:
+        if "v0" in up_s and scene.bvh is not None:
             scene = _refit_sg(scene)
     up_c = {}
     if p.eye is not None:
@@ -133,6 +146,51 @@ def apply_params(scene: Scene, cam: Camera, p: SceneParams):
     if up_c:
         cam = dataclasses.replace(cam, **up_c)
     return scene, cam
+
+
+def _moved_geometry(scene: Scene, p: SceneParams) -> dict:
+    """The Scene fields that the vertex leaves of ``p`` move: corners,
+    Woop rows, geometric normals, the light tables' corners and, under
+    ``shared_vertex_offset``, the mesh's flat shading normals."""
+    v0, v1, v2 = scene.v0, scene.v1, scene.v2
+    if p.vertex_offset is not None:
+        v0, v1, v2 = v0 + p.vertex_offset, v1 + p.vertex_offset, v2 + p.vertex_offset
+    shared = p.shared_vertex_offset
+    if shared is None:
+        woop_a, woop_b, gn = woop_transform(v0, v1, v2)
+    else:
+        if scene.vertex_index is None:
+            raise ValueError("shared_vertex_offset needs a scene with a shared vertex "
+                             "table (a mesh loaded with its vertex index)")
+        if not scene.mesh_flat:
+            raise ValueError("shared_vertex_offset moves flat-shaded meshes only: this "
+                             "mesh's shading normals are not its face normals")
+        # each corner's offset row; triangles outside the mesh read a zero
+        # row past the table and keep everything as it is
+        V, idx = shared.shape[0], scene.vertex_index
+        inside = (idx[:, 0] >= 0)[:, None]
+        rows = torch.where(idx >= 0, idx, V).to(torch.int64)
+        table = torch.cat([shared, torch.zeros_like(shared[:1])])
+        corner = gather_rows(table, rows, span_name="diff.mesh.scatter")      # (T, 3, 3)
+        v0, v1, v2 = (torch.where(inside, v + corner[:, k], v)
+                      for k, v in enumerate((v0, v1, v2)))
+        c64 = scene.vertices[torch.clamp_max(rows, V - 1)] + corner.double()
+        if p.vertex_offset is not None:
+            c64 = c64 + p.vertex_offset.double()[:, None, :]
+        a64, b64, g64 = woop_transform(c64[:, 0], c64[:, 1], c64[:, 2])
+        woop_a = torch.where(inside[:, :, None], a64.float(), scene.woop_a)
+        woop_b, gn = (torch.where(inside, x.float(), getattr(scene, k))
+                      for x, k in ((b64, "woop_b"), (g64, "gn")))
+        spans.count("mesh.vertices", V)
+    # neither move changes a light's area (lt_prefix, light_area): per-triangle
+    # moves are rigid, and emitters are never in the mesh
+    lt = scene.lt_tri.long()
+    out = dict(v0=v0, v1=v1, v2=v2, woop_a=woop_a, woop_b=woop_b, gn=gn,
+               lt_v0=v0[lt], lt_v1=v1[lt], lt_v2=v2[lt])
+    if shared is not None:
+        out.update({k: torch.where(inside, gn, getattr(scene, k))
+                    for k in ("n0", "n1", "n2")})
+    return out
 
 
 def _refit_sg(scene: Scene) -> Scene:

@@ -1,8 +1,8 @@
 """BVH refit under vertex moves, the counterpart of
 ``tinyraytracing_tpu/diff/refit.py``.
 
-Per-triangle offsets keep the tree's topology valid; only boxes and the
-leaf payload go stale. ``refit_bvh`` rewrites them from the scene's
+Vertex moves keep the tree's topology valid; only boxes and the leaf
+payload go stale. ``refit_bvh`` rewrites them from the scene's
 current v0/v1/v2/woop_a/woop_b/gn:
 
 - leaf boxes: segment min/max of the moved per-triangle boxes over
@@ -11,10 +11,14 @@ current v0/v1/v2/woop_a/woop_b/gn:
 - interior boxes: a bottom-up union over ``n_levels`` sweeps;
 - the wide nodes' child boxes through ``PackedLeaves.wn_bnode``;
 - PS rows 0-3 (Woop rows and offsets, geometric normal, emissive flag) at
-  the static slot layout (rows 4-7, shading normals, texcoords and
-  material, move with the triangle and stay), and P, which holds the
-  same rows: the trace kernels read P's records (``Scene.trace_records``
-  takes its slot records from ``Scene.bvh_records``, built from P).
+  the static slot layout, and P, which holds the same rows: the trace
+  kernels read P's records (``Scene.trace_records`` takes its slot records
+  from ``Scene.bvh_records``, built from P);
+- the shading normals of PS rows 4-7 from the scene's n0/n1/n2, which turn
+  with the faces of a flat-shaded mesh under per-vertex offsets (the
+  trace kernels shade with the normals the shading records hold); rigid
+  per-triangle moves leave them, and so these rows, as they were. The
+  texcoords and material of rows 4-7 move with the triangle and stay.
   The JAX refit leaves its P stale, which only its packet-BVH kernel
   reads; here a stale P would make the trace kernels test the unmoved
   triangles.
@@ -102,7 +106,13 @@ def refit_bvh(scene, aabb_pad: float | None = None):
     rows = [torch.cat([a.reshape(n_blk, 32) for a in attrs[4 * r:4 * r + 4]],
                       dim=1).reshape(1, -1) for r in range(4)]
     P = torch.cat(rows, dim=0)
-    PS = torch.cat([P, pk.PS[4:]], dim=0)
+    # S attrs 0-8 are n0 n1 n2 (xyz each) at (row a // 4, lane a % 4)
+    S = pk.PS[4:].reshape(4, n_blk, 4, 32).clone()
+    normals = torch.cat([scene.n0[tid], scene.n1[tid], scene.n2[tid]], dim=1)
+    for a, x in enumerate(normals.unbind(1)):
+        r, c = divmod(a, 4)
+        S[r, :, c] = torch.where(valid, x, S[r, :, c].reshape(-1)).reshape(n_blk, 32)
+    PS = torch.cat([P, S.reshape(4, -1)], dim=0)
 
     pk2 = dataclasses.replace(pk, P=P, node_box=node_box, PS=PS, WN=WN)
     bvh2 = dataclasses.replace(bvh, nmin=nmin, nmax=nmax, packed=pk2)

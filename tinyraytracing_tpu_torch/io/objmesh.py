@@ -17,6 +17,11 @@ else vn, like the reference's last-character branch.
 Per-face data computed exactly as the reference does: geometric normal
 ``normalize(cross(v1-v0, v2-v0))`` and centroid (scene.cpp:196-197).
 Triangles only (the assets contain only 3-vertex faces).
+
+The shared vertex table and each face's three vertex ids are kept beside
+the triangle soup (``vertices``, ``vertex_index``): a connected mesh is
+what per-vertex geometry gradients (``diff.inverse.SceneParams.
+shared_vertex_offset``) move.
 """
 
 from __future__ import annotations
@@ -37,6 +42,10 @@ class MeshArrays:
     center: np.ndarray   # (T, 3) centroid
     mtl: np.ndarray      # (T,) int32 index into mtl_names
     mtl_names: list[str]  # encounter-ordered usemtl names ("" if none)
+    # the shared vertex table and each triangle's vertex ids into it, -1
+    # for a triangle outside the mesh; None where the source has no table
+    vertices: np.ndarray | None = None      # (V, 3) float64
+    vertex_index: np.ndarray | None = None  # (T, 3) int64
 
     @property
     def num_triangles(self) -> int:
@@ -151,7 +160,8 @@ def parse_obj(path: str) -> MeshArrays:
         mtl = np.where(mtl < 0, mtl_index[""], mtl).astype(np.int32)
 
     return MeshArrays(
-        v=v, vn=vn, vt=vt, normal=gn, center=center, mtl=mtl, mtl_names=mtl_names
+        v=v, vn=vn, vt=vt, normal=gn, center=center, mtl=mtl, mtl_names=mtl_names,
+        vertices=V, vertex_index=fvi,
     )
 
 

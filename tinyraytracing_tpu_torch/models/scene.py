@@ -160,6 +160,10 @@ class Scene:
     mtl_names: tuple = ()
     light_names: tuple = ()
     lt_counts: tuple = ()    # per-light REAL triangle counts
+    # --- the optimisable mesh's shared vertices (None: no mesh) ---
+    vertices: torch.Tensor | None = None      # (V, 3) f64 shared vertex table, as loaded
+    vertex_index: torch.Tensor | None = None  # (T, 3) int32 ids, -1 outside the mesh
+    mesh_flat: bool = True   # every mesh triangle shades with its face normal
 
     @property
     def num_triangles(self) -> int:
@@ -213,9 +217,12 @@ class Scene:
         return _to(self, device)
 
 
-_STATIC = {"mtl_names", "light_names", "lt_counts"}
+_STATIC = {"mtl_names", "light_names", "lt_counts", "mesh_flat"}
+# the shared vertex table, the port's own (never carried across)
+MESH_ARRAYS = ("vertices", "vertex_index")
 SCENE_ARRAYS = tuple(f.name for f in dataclasses.fields(Scene)
-                     if f.name not in _STATIC and f.name != "bvh")
+                     if f.name not in _STATIC and f.name != "bvh"
+                     and f.name not in MESH_ARRAYS)
 BVH_ARRAYS = ("nmin", "nmax", "start", "count", "skip")
 BVH_STATICS = ("n_nodes", "leaf_size", "aabb_pad")
 PACKED_ARRAYS = ("P", "tid", "node_box", "node_meta", "PS", "WN")
@@ -236,7 +243,9 @@ def scene_from_arrays(d: dict, statics: dict, device="cuda") -> Scene:
     integer fields under the same dotted keys (``"bvh.n_nodes"``,
     ``"bvh.packed.n_wide"``, ...). The refit metadata (``BVH_REFIT``,
     ``PACKED_REFIT``, ``"bvh.n_levels"``) comes across where present and
-    is None where absent; ``BVHArrays.builder`` is not carried (None).
+    is None where absent; ``BVHArrays.builder`` and the shared vertex
+    table (``MESH_ARRAYS``, which the JAX package has not) are not carried
+    (None).
     Extra keys are ignored, so the fields of a JAX Scene can be passed as
     they are."""
     t = lambda a: torch.from_numpy(np.array(a)).to(device)
@@ -326,6 +335,14 @@ def assemble_scene(
     per-triangle arrays are permuted to leaf order on the host. Light
     tables are built from the ORIGINAL obj order, as the reference does
     (main.cpp:66-76).
+
+    A mesh with a shared vertex table (``MeshArrays.vertex_index``) keeps
+    it: ``Scene.vertices`` (float64, for Woop rows of the moved mesh as
+    exact as the loaded ones) and each triangle's vertex ids, permuted with
+    the triangles. Emitters are left out of the mesh (their ids become
+    -1): the light tables' areas stay as loaded. ``Scene.mesh_flat`` says
+    whether every mesh triangle's three shading normals are its geometric
+    normal (within 1e-6).
     """
     # --- material table: encounter order = xml lights, obj usemtl, mtl file
     names: list[str] = []
@@ -411,6 +428,11 @@ def assemble_scene(
             light_area[li] = pref[-1]
     nee_range = light_area[0] if len(config.lights) else np.float32(0)
 
+    # the mesh's vertex ids, emitters left out
+    vidx = None
+    if mesh.vertex_index is not None:
+        vidx = np.where(tri_emissive[:, None], -1, mesh.vertex_index)
+
     # optional host-side BVH permutation of the per-triangle arrays
     tv, tvn, tvt, tgn = mesh.v, mesh.vn, mesh.vt, mesh.normal
     bvh = None
@@ -419,6 +441,8 @@ def assemble_scene(
 
         nodes, perm = bvh_host
         tv, tvn, tvt, tgn = tv[perm], tvn[perm], tvt[perm], tgn[perm]
+        if vidx is not None:
+            vidx = vidx[perm]
         tri_mtl = tri_mtl[perm]
         tri_emissive = tri_emissive[perm]
         woop_a, woop_b = woop_transform(tv)
@@ -449,12 +473,19 @@ def assemble_scene(
         nee_range=f32(nee_range), tex=atlas, tex_hw=tex_hw,
     )
     t = lambda a: torch.from_numpy(np.array(a)).to(device)
+    mesh_kw = {}
+    if vidx is not None:
+        inside = vidx[:, 0] >= 0
+        flat = bool(np.all(np.abs(tvn[inside] - tgn[inside][:, None]) <= 1e-6))
+        mesh_kw = dict(vertices=t(np.asarray(mesh.vertices, np.float64)),
+                       vertex_index=t(vidx.astype(np.int32)), mesh_flat=flat)
     return Scene(
         **{k: t(d[k]) for k in SCENE_ARRAYS},
         bvh=bvh.to(device) if bvh is not None else None,
         mtl_names=tuple(names),
         light_names=tuple(l.mtl_name for l in config.lights),
         lt_counts=tuple(int(c) for c in counts),
+        **mesh_kw,
     )
 
 

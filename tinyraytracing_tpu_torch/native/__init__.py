@@ -138,14 +138,12 @@ def _obj_lib() -> ctypes.CDLL:
     if not getattr(lib, "_typed", False):
         D = ctypes.POINTER(ctypes.c_double)
         lib.tinypt_obj_scan.restype = ctypes.c_int
-        lib.tinypt_obj_scan.argtypes = [
-            ctypes.c_char_p, ctypes.POINTER(ctypes.c_int64),
-            ctypes.POINTER(ctypes.c_int64),
-        ]
+        I64 = ctypes.POINTER(ctypes.c_int64)
+        lib.tinypt_obj_scan.argtypes = [ctypes.c_char_p, I64, I64, I64]
         lib.tinypt_obj_parse.restype = ctypes.c_int64
         lib.tinypt_obj_parse.argtypes = [
             ctypes.c_char_p, D, D, D, ctypes.POINTER(ctypes.c_int32),
-            ctypes.c_char_p, ctypes.c_int64,
+            ctypes.c_char_p, ctypes.c_int64, I64, D,
         ]
         lib._typed = True
     return lib
@@ -158,21 +156,24 @@ def parse_obj_native(path: str):
 
     lib = _obj_lib()
     bpath = os.fsencode(path)
-    n_tris, names_bytes = ctypes.c_int64(), ctypes.c_int64()
-    if lib.tinypt_obj_scan(bpath, ctypes.byref(n_tris),
-                           ctypes.byref(names_bytes)) != 0:
+    n_tris, names_bytes, n_verts = ctypes.c_int64(), ctypes.c_int64(), ctypes.c_int64()
+    if lib.tinypt_obj_scan(bpath, ctypes.byref(n_tris), ctypes.byref(names_bytes),
+                           ctypes.byref(n_verts)) != 0:
         raise FileNotFoundError(path)
     T = n_tris.value
     v = np.empty((T, 3, 3), np.float64)
     vn = np.empty((T, 3, 3), np.float64)
     vt = np.empty((T, 3, 2), np.float64)
     mtl = np.empty(T, np.int32)
+    fv = np.empty((T, 3), np.int64)
+    verts = np.empty((n_verts.value, 3), np.float64)
     names_buf = ctypes.create_string_buffer(int(names_bytes.value) + 1)
     dptr = lambda a: a.ctypes.data_as(ctypes.POINTER(ctypes.c_double))
     got = lib.tinypt_obj_parse(
         bpath, dptr(v), dptr(vn), dptr(vt),
         mtl.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
         names_buf, names_bytes.value + 1,
+        fv.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), dptr(verts),
     )
     if got != T:
         raise RuntimeError(f"obj parse of {path}: {got} triangles, scan said {T}")
@@ -187,4 +188,4 @@ def parse_obj_native(path: str):
     gn = np.cross(v[:, 1] - v[:, 0], v[:, 2] - v[:, 0])
     gn /= np.maximum(np.linalg.norm(gn, axis=1, keepdims=True), 1e-30)
     return MeshArrays(v=v, vn=vn, vt=vt, normal=gn, center=v.mean(axis=1),
-                      mtl=mtl, mtl_names=mtl_names)
+                      mtl=mtl, mtl_names=mtl_names, vertices=verts, vertex_index=fv)

@@ -7,10 +7,12 @@
 // flips the interpretation of "a/b/c" from v/vn/vt to v/vt/vn.
 //
 // Two-call C API (ctypes):
-//   tinypt_obj_scan(path, &n_tris, &names_bytes)      -> 0 on success
-//   tinypt_obj_parse(path, v9, vn9, vt6, mtl, names)  -> n_tris
+//   tinypt_obj_scan(path, &n_tris, &names_bytes, &n_verts)          -> 0 on success
+//   tinypt_obj_parse(path, v9, vn9, vt6, mtl, names, cap, fv3, v3)  -> n_tris
 // where v9/vn9/vt6 are (T,9)/(T,9)/(T,6) float64 buffers, mtl (T,) int32
-// indices into the '\n'-joined usemtl name blob written to `names`.
+// indices into the '\n'-joined usemtl name blob written to `names`, fv3
+// (T,3) int64 each face's vertex ids and v3 (V,3) float64 the shared
+// vertex table.
 
 #include <cctype>
 #include <cstdint>
@@ -130,10 +132,11 @@ bool parse_file(const char* path, Parsed* out) {
 }  // namespace
 
 extern "C" int tinypt_obj_scan(const char* path, int64_t* n_tris,
-                               int64_t* names_bytes) {
+                               int64_t* names_bytes, int64_t* n_verts) {
   Parsed p;
   if (!parse_file(path, &p)) return -1;
   *n_tris = (int64_t)p.fm.size();
+  *n_verts = (int64_t)p.v.size() / 3;
   int64_t nb = 1;
   for (const auto& n : p.names) nb += (int64_t)n.size() + 1;
   *names_bytes = nb;
@@ -142,7 +145,8 @@ extern "C" int tinypt_obj_scan(const char* path, int64_t* n_tris,
 
 extern "C" int64_t tinypt_obj_parse(const char* path, double* v9, double* vn9,
                                     double* vt6, int32_t* mtl, char* names,
-                                    int64_t names_cap) {
+                                    int64_t names_cap, int64_t* fv3,
+                                    double* v3) {
   Parsed p;
   if (!parse_file(path, &p)) return -1;
   const int64_t T = (int64_t)p.fm.size();
@@ -163,6 +167,8 @@ extern "C" int64_t tinypt_obj_parse(const char* path, double* v9, double* vn9,
     }
     mtl[t] = p.fm[t];
   }
+  std::memcpy(fv3, p.fv.data(), p.fv.size() * sizeof(int64_t));
+  std::memcpy(v3, p.v.data(), p.v.size() * sizeof(double));
   int64_t off = 0;
   for (const auto& n : p.names) {
     if (off + (int64_t)n.size() + 1 >= names_cap) break;

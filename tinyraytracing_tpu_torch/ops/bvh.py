@@ -217,6 +217,8 @@ def attach_bvh(scene, config: RenderConfig):
     dev = scene.v0.device
     fields = ("v0", "v1", "v2", "n0", "n1", "n2", "t0", "t1", "t2", "gn",
               "woop_a", "woop_b", "tri_mtl", "tri_emissive")
+    if scene.vertex_index is not None:
+        fields += ("vertex_index",)
     with span("scene.upload"):
         moved = {f: torch.from_numpy(p(getattr(scene, f))).to(dev) for f in fields}
         lt_tri = inv_perm[host(scene.lt_tri)].astype(np.int32)

@@ -11,9 +11,12 @@ directly (negative indices wrap, others clamp), reproduced too.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from tinyraytracing_tpu_torch.ops.scatter import scatter_add_rows_fixed
+from tinyraytracing_tpu_torch.utils.spans import span
 
 CHAIN_LIMIT = 64
 
@@ -30,20 +33,22 @@ class _GatherRows(torch.autograd.Function):
     ``ops.scatter.scatter_add_rows_fixed``, in a fixed order."""
 
     @staticmethod
-    def forward(ctx, table, rows):
+    def forward(ctx, table, rows, span_name):
         ctx.save_for_backward(rows)
-        ctx.n_rows = table.shape[0]
+        ctx.n_rows, ctx.span_name = table.shape[0], span_name
         return torch.index_select(table, 0, rows)
 
     @staticmethod
     def backward(ctx, g):
         if not ctx.needs_input_grad[0]:
-            return None, None
+            return None, None, None
         (rows,) = ctx.saved_tensors
-        return scatter_add_rows_fixed(ctx.n_rows, rows, g.contiguous()), None
+        with span(ctx.span_name) if ctx.span_name else contextlib.nullcontext():
+            return scatter_add_rows_fixed(ctx.n_rows, rows, g.contiguous()), None, None
 
 
-def gather_rows(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+def gather_rows(table: torch.Tensor, rows: torch.Tensor,
+                span_name: str | None = None) -> torch.Tensor:
     """``table[rows]`` for integer ``rows`` (in [0, M)) of any shape, by
     ``index_select``. Its backward sums the cotangent rows in a fixed
     order (``ops.scatter.scatter_add_rows_fixed``: the CUDA kernel on the
@@ -52,8 +57,9 @@ def gather_rows(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     with atomics on the card, in no fixed order; ``table[rows]``'s sorts
     the indices and then adds each run of equal rows in turn, which on the
     card is many times slower where many rows repeat, as in a gather from
-    a material or light table (PERF.md, Findings)."""
-    flat = _GatherRows.apply(table, rows.reshape(-1))
+    a material or light table (PERF.md, Findings). With ``span_name`` the
+    backward's scatter is a span of that name (``utils.spans``)."""
+    flat = _GatherRows.apply(table, rows.reshape(-1), span_name)
     return flat.reshape(*rows.shape, *table.shape[1:])
 
 

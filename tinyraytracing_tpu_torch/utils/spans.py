@@ -20,9 +20,12 @@ Spans are stamped with ``time.time_ns()``: the Unix clock that
 ``torch.profiler``'s events carry, so a span and a kernel interval of one
 profile compare directly, as do the spans of processes on one host.
 
-Nothing here touches a device: a span reads the host clock and a counter
-takes a value the host already holds. So recording adds no device op and
-no synchronisation, on or off.
+Nothing here issues a device op: a span reads the host clock and a
+counter takes a value the host already holds. So recording adds no device
+op and no synchronisation, on or off. A count that the device holds goes
+in with ``add(name, tensor)``, which keeps a reference to the tensor while
+a recording is open; the recording sums each name's tensors as it ends,
+into ``counts``: one read of the device, after the work it counts.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ _COUNTS: dict[str, int] = {}
 _lock = threading.Lock()
 _local = threading.local()
 _open: list | None = None          # the open recording's spans
+_device: dict | None = None        # the open recording's device counts
 
 
 @dataclasses.dataclass
@@ -99,22 +103,39 @@ def count(name: str, n: int = 1) -> None:
         _COUNTS[name] = _COUNTS.get(name, 0) + n
 
 
+def add(name: str, value) -> None:
+    """While a recording is open, count the device scalar ``value`` (a
+    tensor holding a whole number) under ``name``; nothing otherwise. No
+    device op: the tensor is kept and summed as the recording ends."""
+    device = _device
+    if device is not None:
+        with _lock:
+            device.setdefault(name, []).append(value.detach())
+
+
+def _device_totals(device: dict) -> dict:
+    import torch
+
+    return {k: int(torch.stack(vs).double().sum().item()) for k, vs in device.items()}
+
+
 @contextlib.contextmanager
 def recording():
     """Record spans over the extent of the ``with``; yields the
     ``Recording``. One recording is open at a time."""
-    global _open
+    global _open, _device
     if _open is not None:
         raise RuntimeError("a recording is already open")
     rec = Recording()
     with _lock:
         base = dict(_COUNTS)
-    _open = rec.spans
+    _open, _device = rec.spans, {}
     try:
         yield rec
     finally:
-        _open = None
+        device, _open, _device = _device, None, None
         with _lock:
             now = dict(_COUNTS)
         rec.counts = {k: v - base.get(k, 0) for k, v in now.items()
                       if v != base.get(k, 0)}
+        rec.counts.update(_device_totals(device))
